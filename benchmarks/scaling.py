@@ -1,9 +1,9 @@
 """Weak/strong scaling harness for the distributed supersteps.
 
-BASELINE.md protocol: edges/s at 1 chip / 1 host / N hosts with >=75%
-weak-scaling efficiency. On a CPU backend this runs on virtual devices
+Edges/s at 1..N devices and the weak-scaling efficiency. On a CPU
+backend this runs on virtual devices
 (XLA_FLAGS=--xla_force_host_platform_device_count=8) to validate the
-scaling *code path*; on TPU slices it measures real ICI scaling.
+scaling *code path*; on a multi-GPU host it measures real scaling.
 
 Usage:
   python benchmarks/scaling.py [--cpu] [--scale 16] [--weak]

@@ -1,4 +1,4 @@
-"""Beyond-int32 SpGEMM capability run (VERDICT r4 #7): product counts
+"""Beyond-int32 SpGEMM capability run: product counts
 past 2^31 run via int64 product accounting + the host-streamed numeric
 mode (C never resides whole on chip).
 

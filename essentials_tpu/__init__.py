@@ -1,13 +1,12 @@
-"""essentials_tpu — a TPU-native graph analytics & message-passing framework.
+"""essentials_tpu — a graph analytics & message-passing framework in JAX.
 
 A from-scratch rebuild of the capabilities of gunrock/essentials (CUDA, see
-/root/reference) designed for TPU hardware: graphs are immutable pytrees with
-static padded shapes, frontiers are dense boolean maps over vertices, algorithm
-iterations are `jax.lax.while_loop` supersteps compiled once with `jax.jit`,
-roofline-critical sparse paths are Pallas kernels, and scale-out uses
-`jax.sharding.Mesh` + `shard_map` with XLA collectives over ICI/DCN.
+/root/reference): graphs are immutable pytrees with static padded shapes,
+frontiers are dense boolean maps over vertices, algorithm iterations are
+`jax.lax.while_loop` supersteps compiled once with `jax.jit`, and scale-out
+uses `jax.sharding.Mesh` + `shard_map` with XLA collectives.
 
-Layer map (mirrors reference SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors reference SURVEY.md §1):
 
   L0 runtime   -> XLA/jit + device helpers        (essentials_tpu.runtime)
   L1 memory    -> jax arrays / pytrees            (implicit)
@@ -22,7 +21,7 @@ Layer map (mirrors reference SURVEY.md §1, re-designed TPU-first):
                   mst/tc/hits/geo/spmv/spgemm     (essentials_tpu.algorithms)
   L9 harness   -> CLI, bench, tests               (essentials_tpu.cli, bench/)
 
-Parallel scale-out (absent in the reference; first-class here):
+Parallel scale-out (absent in the reference):
   essentials_tpu.parallel — vertex 1-D partitions, shard_map supersteps,
   all_gather frontier exchange, psum convergence.
 """
@@ -31,26 +30,16 @@ __version__ = "0.1.0"
 
 import os as _os
 
+import jax as _jax
 
-def _enable_xla_cache():
-    """Persistent XLA compilation cache (analogous to the route-plan disk
-    cache): first compiles of the big fused superstep programs cost 20-40 s
-    on TPU; cached reloads are ~instant across processes."""
-    try:
-        import jax
-        d = _os.environ.get(
-            "ESSENTIALS_TPU_XLA_CACHE",
-            _os.path.join(_os.path.expanduser("~"), ".cache",
-                          "essentials_tpu", "xla"))
-        if d and d != "0":
-            _os.makedirs(d, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", d)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
-_enable_xla_cache()
+# Persistent compilation cache. JAX reads JAX_COMPILATION_CACHE_DIR itself;
+# without it the cache sits at a fixed path inside the checkout (the path
+# is part of the cache key, so it must not move between runs).
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 from essentials_tpu import formats, graph, io, ops, frontier, framework
 from essentials_tpu import algorithms, parallel, utils

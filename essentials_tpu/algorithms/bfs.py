@@ -1,9 +1,9 @@
 """Breadth-first search.
 
 Reference parity: gunrock::bfs (/root/reference/include/gunrock/algorithms/
-bfs.hxx:110-178): frontier-driven level-synchronous BFS. TPU-native
-structure: the hot loop computes ONLY the reached-set per level (an
-OR-combine — one int32 cumsum over the edge axis); depths are assigned from
+bfs.hxx:110-178): frontier-driven level-synchronous BFS. The hot loop
+computes ONLY the reached-set per level (an OR-combine over the edge
+axis); depths are assigned from
 the iteration counter; predecessors are derived afterwards in a single
 full-graph advance (MIN over sources one level up) instead of the
 reference's per-step atomic races — deterministic smallest-id predecessors.
@@ -12,18 +12,17 @@ reference's per-step atomic races — deterministic smallest-id predecessors.
 from __future__ import annotations
 
 from typing import NamedTuple
-from functools import partial
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
 from essentials_tpu.frontier import frontier_from_indices
-from essentials_tpu.framework.enactor import enact, default_converged, EnactResult
+from essentials_tpu.framework.enactor import enact, default_converged
 from essentials_tpu.graph.graph import Graph
 from essentials_tpu.ops import advance, advance_count, Combine, AdvanceIO
 from essentials_tpu.ops.sparse_advance import (
-    spray_enabled, spray_k, SPRAY_BUDGET, SPRAY_K, TINY_BUDGET, TINY_K,
+    spray_enabled, spray_k, SPRAY_BUDGET, TINY_BUDGET, TINY_K,
     frontier_out_degree, frontier_degree_sum, spray_reach, compact_frontier)
 
 UNREACHED = np.iinfo(np.int32).max
@@ -62,9 +61,9 @@ def step(g: Graph, state: BfsState, it) -> BfsState:
     out-degree (computed from the boolmap — one cheap [Vp] reduce, no
     per-index gathers outside the taken branch):
 
-      tiny spray   sum(deg) <= 4K   ~0.2 ms   head/tail levels
-      spray        sum(deg) <= 32K  ~1 ms     transition levels
-      dense        otherwise        O(E) fused 7-kernel superstep
+      tiny spray   sum(deg) <= 4K     head/tail levels
+      spray        sum(deg) <= 32K    transition levels
+      dense        otherwise          O(E) segment-engine advance
 
     The dense branch also compacts the next index list when it fits, so
     every graph drops back to spray for its small levels."""
@@ -73,7 +72,6 @@ def step(g: Graph, state: BfsState, it) -> BfsState:
     vp = g.n_vertices_padded
 
     def dense_reach(f):
-        # fused 7-kernel mega-chain superstep (ops/advance.py:advance_count)
         return advance_count(g, f) > 0
 
     if not spray_enabled(g):
@@ -113,321 +111,6 @@ def step(g: Graph, state: BfsState, it) -> BfsState:
     return BfsState(jnp.where(newly, it + 1, dist), newly, fi, fc, fc <= K)
 
 
-def fused_supported(g: Graph) -> bool:
-    """The edge-axis fused superstep needs the symmetric layout (so the
-    vertex<->edge moves cancel across levels) and the router plans."""
-    return bool(g.symmetric_layout and g.route_fwd is not None
-                and g.off_route_csr is not None)
-
-
-def _swar_mode(g: Graph, max_it) -> bool:
-    """Static gate for the byte-SWAR dense kernels: levels must fit a
-    byte (sentinel 127) and the cube-plan TPU path must be active."""
-    from essentials_tpu.ops import fused_bfs as FB
-    from essentials_tpu.ops import cube_router
-    return (max_it <= 126
-            and isinstance(g.route_fwd, cube_router.CubePlan)
-            and jax.default_backend() == "tpu" and not FB._INTERPRET)
-
-
-def run_fused_levels(g: Graph, source, max_it, i8_carrier: bool = False):
-    """Whole BFS on the edge axis (ops/fused_bfs.py): one fused 3-kernel
-    superstep per level, no expand/collapse inside the loop. Returns
-    (lev_exp, iterations). When max_it <= 126 the supersteps run the
-    byte-SWAR ladders (sentinel 127). i8_carrier routes the 0/1
-    frontier on an int8 inter-kernel carrier (12 B/edge less HBM per
-    level; gathers widen in VMEM)."""
-    from essentials_tpu.ops import fused_bfs as FB
-
-    swar = _swar_mode(g, max_it)
-    unreached = FB.UNREACHED_E if swar else FB.UNREACHED
-    fp = (FB.pack_flags(g.csc_seg_flags, g.route_fwd.length)
-          if swar else None)
-    lev0 = FB.init_lev_exp(g, source, unreached)
-
-    def cond(c):
-        lev, go, it = c
-        return (it < max_it) & (go != 0)
-
-    def body(c):
-        lev, go, it = c
-        if swar:
-            lev2, cnt = FB.fused_superstep2(g, lev, it, swar=True, fp=fp,
-                                            i8_carrier=i8_carrier)
-        else:
-            lev2, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
-        return lev2, cnt[0, 0], it + 1
-
-    lev, _, it = jax.lax.while_loop(
-        cond, body, (lev0, jnp.int32(1), jnp.int32(0)))
-    return lev, it, unreached
-
-
-HYBRID_BUDGET = 1 << 15          # spray tier: sum(deg(frontier)) cap
-HYBRID_K = 1 << 15               # frontier index-list capacity (== budget)
-_SPRAY, _DENSE, _DONE = 0, 1, 2
-
-
-def run_hybrid_levels(g: Graph, source, max_it, spray_override=None):
-    """Whole BFS with per-level mode switching (on-device lax.switch):
-
-      spray   sum(deg(frontier)) <= 32K: O(budget) gathers/sorts, plus a
-              K-element scatter keeping lev_exp's segment starts current
-      dense   the fused 3-kernel edge-axis superstep (fused_superstep2)
-
-    Transitions: spray->dense is free (the touch-up scatter runs every
-    spray level); dense->spray pays one collapse (distances refresh) +
-    one [Vp] compaction, taken only when the dense level found <= K new
-    vertices. Returns (dist [Vp] int32, iterations). Head/tail levels of
-    power-law BFS and ALL levels of high-diameter BFS run spray —
-    reference parity with the vector-frontier work model
-    (framework/frontier/vector_frontier.hxx) fused into one while_loop."""
-    from essentials_tpu.ops import fused_bfs as FB
-    from essentials_tpu.ops.sparse_advance import (
-        spray_reach, frontier_out_degree, compact_frontier, spray_enabled)
-
-    K = HYBRID_K
-    vp = g.n_vertices_padded
-    ep = g.n_edges_padded
-    pad = g.pad_vertex
-    use_spray = spray_enabled(g) if spray_override is None else \
-        spray_override
-
-    swar = _swar_mode(g, max_it)
-    unreached_e = FB.UNREACHED_E if swar else FB.UNREACHED
-    fp = (FB.pack_flags(g.csc_seg_flags, g.route_fwd.length)
-          if swar else None)
-    lev0 = FB.init_lev_exp(g, source, unreached_e)
-    dist0 = jnp.full(vp, UNREACHED, jnp.int32).at[source].set(0)
-    fidx0 = jnp.full(K, pad, jnp.int32).at[0].set(source)
-    src_deg = g.row_offsets[jnp.asarray(source) + 1] - g.row_offsets[source]
-    mode0 = jnp.where(use_spray & (src_deg <= HYBRID_BUDGET),
-                      _SPRAY, _DENSE).astype(jnp.int32)
-
-    def spray_level(c):
-        lev, dist, fidx, _, fresh, it = c
-        offs, deg = frontier_out_degree(g, fidx)
-        newly, nidx, nc = spray_reach(g, fidx, offs, deg,
-                                      dist == UNREACHED, HYBRID_BUDGET, K)
-        dist2 = jnp.where(newly, it + 1, dist)
-        offs2, deg2 = frontier_out_degree(g, nidx)
-        nds = jnp.sum(deg2)
-        # touch-up: keep lev_exp current at the newly segments' STARTS so
-        # a dense level can take over at any point
-        tgt = jnp.where(nidx != pad, offs2, ep)
-        lev2 = lev.at[tgt].set(it + 1, mode="drop")
-        mode = jnp.where(nc == 0, _DONE,
-                         jnp.where(nds <= HYBRID_BUDGET, _SPRAY, _DENSE))
-        return (lev2, dist2, nidx, mode.astype(jnp.int32),
-                jnp.asarray(True), it + 1)
-
-    def dense_level(c):
-        lev, dist, fidx, _, fresh, it = c
-        if swar:
-            lev2, cnt2 = FB.fused_superstep2(g, lev, it, swar=True, fp=fp)
-        else:
-            lev2, cnt2 = FB.fused_superstep(g, lev, it,
-                                            unreached=unreached_e)
-        cnt = cnt2[0, 0]
-
-        def transition(lev2):
-            dist2 = FB.collapse_lev_exp(g, lev2, source,
-                                        unreached_e)[:vp]
-            frontier = dist2 == it + 1
-            fidx2 = compact_frontier(frontier, K, pad)
-            offs2, deg2 = frontier_out_degree(g, fidx2)
-            nds = jnp.sum(deg2)
-            mode = jnp.where(nds <= HYBRID_BUDGET, _SPRAY, _DENSE)
-            return dist2, fidx2, mode.astype(jnp.int32), jnp.asarray(True)
-
-        def stay(lev2):
-            mode = jnp.where(cnt == 0, _DONE, _DENSE)
-            return dist, fidx, mode.astype(jnp.int32), jnp.asarray(False)
-
-        take = use_spray & (cnt > 0) & (cnt <= K)
-        dist2, fidx2, mode, fr = jax.lax.cond(take, transition, stay, lev2)
-        return lev2, dist2, fidx2, mode, fr, it + 1
-
-    def body(c):
-        return jax.lax.switch(c[3], [spray_level, dense_level], c)
-
-    def cond(c):
-        return (c[3] != _DONE) & (c[5] < max_it)
-
-    lev, dist, _, _, fresh, it = jax.lax.while_loop(
-        cond, body, (lev0, dist0, fidx0, mode0, jnp.asarray(True),
-                     jnp.int32(0)))
-    # if the last level ran dense without transitioning, dist is stale:
-    # refresh from the edge axis (min-merge keeps spray-found levels exact)
-    dist = jax.lax.cond(
-        fresh,
-        lambda: dist,
-        lambda: jnp.minimum(dist, FB.collapse_lev_exp(
-            g, lev, source, unreached_e)[:vp]))
-    return dist, it
-
-
-@partial(jax.jit, static_argnums=(2,))
-def _run_hybrid_compiled(g, source, max_it):
-    return run_hybrid_levels(g, source, max_it)
-
-
-def run_phased_levels(g: Graph, source, max_it, spray_override=None):
-    """Whole BFS as a PHASE-SPLIT pipeline: spray loop A -> dense fused
-    loop B -> spray loop C -> safety dense loop D, each its own
-    while_loop with transitions between them.
-
-    run_hybrid_levels switches mode per level inside ONE while_loop; the
-    lax.switch there carries the full edge-axis state through every level
-    and measured ~4 ms/level of overhead at rmat18 (STATUS r3) — 5.7x the
-    0.72 ms fused superstep itself. Here each loop carries only the state
-    its phase needs (spray loops never touch the [Ep] array; the dense
-    loop's body IS the bare 3-kernel superstep), and the transitions —
-    one routed expand (vertex->edge) into B/D, one collapse out — run
-    once per phase boundary instead of once per level.
-
-    Phase flow (go codes: 0 done, 1 still-running/max_it, 2 hand over):
-      A sprays while the frontier's out-degree sum fits HYBRID_BUDGET;
-      B runs dense supersteps until the newly-vertex count drops under a
-        degree-scaled tail threshold (then hands the tail to C) or zero;
-      C sprays the tail to completion; if the frontier regrows, D (dense,
-        no tail exit) finishes. Distances found by dense levels are
-        min-merged from the edge axis exactly once, and only on the paths
-        where they are stale.
-
-    Reference parity: direction-cost adaptation of enactor-driven BFS
-    (bfs.hxx:110-178) — see docs/performance.md on why pull/push
-    direction itself is moot for this engine. Returns (dist, iterations).
-    """
-    from essentials_tpu.ops import fused_bfs as FB
-    from essentials_tpu.ops.segment import expand_vertex_to_edges_routed
-    from essentials_tpu.ops.sparse_advance import (
-        spray_reach, frontier_out_degree, compact_frontier, spray_enabled)
-
-    K = HYBRID_K
-    vp = g.n_vertices_padded
-    pad = g.pad_vertex
-    use_spray = spray_enabled(g) if spray_override is None else \
-        spray_override
-
-    swar = _swar_mode(g, max_it)
-    unreached_e = FB.UNREACHED_E if swar else FB.UNREACHED
-    fp = (FB.pack_flags(g.csc_seg_flags, g.route_fwd.length)
-          if swar else None)
-
-    # dense->spray handoff: exit B when the newly count suggests the next
-    # level's edge work fits the spray budget (C re-checks the real
-    # degree sum and falls through to D when the estimate was wrong —
-    # stragglers usually sit well below the average degree, hence the 4x)
-    avg_deg = max(1, g.n_edges_padded // max(vp, 1))
-    tail_cnt = max(256, min(K, (4 * HYBRID_BUDGET) // avg_deg))
-
-    dist0 = jnp.full(vp, UNREACHED, jnp.int32).at[source].set(0)
-    fidx0 = jnp.full(K, pad, jnp.int32).at[0].set(source)
-
-    def spray_loop(dist, fidx, it, go0):
-        """go: 1 run, 0 done, 2 frontier outgrew the budget."""
-        def cond(c):
-            return (c[2] == 1) & (c[3] < max_it)
-
-        def body(c):
-            dist, fidx, _, it = c
-            offs, deg = frontier_out_degree(g, fidx)
-
-            def do(_):
-                newly, nidx, nc = spray_reach(g, fidx, offs, deg,
-                                              dist == UNREACHED,
-                                              HYBRID_BUDGET, K)
-                dist2 = jnp.where(newly, it + 1, dist)
-                return (dist2, nidx,
-                        jnp.where(nc == 0, 0, 1).astype(jnp.int32), it + 1)
-
-            def bail(_):
-                return dist, fidx, jnp.int32(2), it
-
-            return jax.lax.cond(jnp.sum(deg) <= HYBRID_BUDGET, do, bail,
-                                None)
-
-        return jax.lax.while_loop(cond, body, (dist, fidx, go0, it))
-
-    def to_edge_axis(dist):
-        lev_v = (jnp.where(dist == UNREACHED, unreached_e, dist)
-                 if swar else dist)
-        return expand_vertex_to_edges_routed(lev_v, g.off_route_csr)
-
-    def dense_loop(lev, it, go0, tail_exit):
-        """go: 1 run, 0 done, 2 tail handed to spray."""
-        def cond(c):
-            return (c[1] == 1) & (c[2] < max_it)
-
-        def body(c):
-            lev, _, it = c
-            if swar:
-                lev2, cnt2 = FB.fused_superstep2(g, lev, it, swar=True,
-                                                 fp=fp)
-            else:
-                lev2, cnt2 = FB.fused_superstep(g, lev, it,
-                                                unreached=unreached_e)
-            cnt = cnt2[0, 0]
-            go = jnp.where(cnt == 0, 0,
-                           jnp.where(tail_exit & (cnt <= tail_cnt), 2, 1))
-            return lev2, go.astype(jnp.int32), it + 1
-
-        return jax.lax.while_loop(cond, body, (lev, go0, it))
-
-    # ---- A: spray from the source ----
-    go_a0 = jnp.where(jnp.asarray(use_spray), 1, 2).astype(jnp.int32)
-    dist, fidx, go_a, it = spray_loop(dist0, fidx0, jnp.int32(0), go_a0)
-
-    # ---- B: dense supersteps with tail exit ----
-    enter_b = go_a == 2
-    lev = jax.lax.cond(
-        enter_b, lambda d: to_edge_axis(d),
-        lambda d: jnp.full(g.n_edges_padded, unreached_e, jnp.int32), dist)
-    lev, go_b, it = dense_loop(
-        lev, it, jnp.where(enter_b, 1, 0).astype(jnp.int32),
-        jnp.asarray(use_spray))
-
-    # ---- B -> C: collapse + compact, only on the tail handoff ----
-    def b_to_c(args):
-        lev, dist, it = args
-        dist2 = jnp.minimum(dist, FB.collapse_lev_exp(
-            g, lev, source, unreached_e)[:vp])
-        fidx2 = compact_frontier(dist2 == it, K, pad)
-        return dist2, fidx2
-
-    dist, fidx = jax.lax.cond(
-        go_b == 2, b_to_c, lambda a: (a[1], jnp.full(K, pad, jnp.int32)),
-        (lev, dist, it))
-
-    # ---- C: spray the tail ----
-    dist, fidx, go_c, it = spray_loop(
-        dist, fidx, it, jnp.where(go_b == 2, 1, 0).astype(jnp.int32))
-
-    # ---- D: safety dense run to completion (tail regrew) ----
-    enter_d = go_c == 2
-    lev = jax.lax.cond(enter_d, lambda a: to_edge_axis(a[1]),
-                       lambda a: a[0], (lev, dist))
-    lev, go_d, it = dense_loop(
-        lev, it, jnp.where(enter_d, 1, 0).astype(jnp.int32),
-        jnp.asarray(False))
-
-    # ---- final merge: dense-found levels are stale in dist unless the
-    # B->C transition already merged them and D never ran ----
-    need = enter_b & jnp.logical_not((go_b == 2) & jnp.logical_not(enter_d))
-    dist = jax.lax.cond(
-        need,
-        lambda a: jnp.minimum(a[1], FB.collapse_lev_exp(
-            g, a[0], source, unreached_e)[:vp]),
-        lambda a: a[1], (lev, dist))
-    return dist, it
-
-
-@partial(jax.jit, static_argnums=(2,))
-def _run_phased_compiled(g, source, max_it):
-    return run_phased_levels(g, source, max_it)
-
-
 def predecessors_from_distances(g: Graph, dist: jax.Array) -> jax.Array:
     """pred[v] = smallest-id in-neighbor one BFS level up (-1 at source /
     unreached). One full-graph advance (MIN)."""
@@ -442,102 +125,13 @@ def predecessors_from_distances(g: Graph, dist: jax.Array) -> jax.Array:
     return jnp.where(valid, cand, -1)
 
 
-@partial(jax.jit, static_argnums=(2, 3))
-def _run_fused_compiled(g, source, max_it, i8_carrier=False):
-    from essentials_tpu.ops import fused_bfs as FB
-    lev, it, unreached = run_fused_levels(g, source, max_it, i8_carrier)
-    return FB.collapse_lev_exp(g, lev, source, unreached), it
-
-
-_auto_cache: dict = {}
-
-
-def _graph_key(g: Graph) -> tuple:
-    import jax as _jax
-    return (g.n_vertices_padded, g.n_edges_padded, g.symmetric_layout,
-            bool(g.properties.weighted), _jax.default_backend())
-
-
-def _auto_variant(g: Graph, source, max_it) -> str:
-    """Measured variant probe (VERDICT r2 #8): time one warm run of each
-    candidate and cache the winner keyed by graph shape. When the fused
-    engine is unsupported there is nothing to probe (adaptive only); when
-    it is supported, adaptive is excluded from the probe — its first
-    compile is ~10 min cold and it lost every measured A/B against the
-    fused path (rmat18: 7.4 vs 3.6 ms; road-grid: 393 vs 239 ms)."""
-    key = ("bfs",) + _graph_key(g)
-    v = _auto_cache.get(key)
-    if v is not None:
-        return v
-    if not fused_supported(g):
-        _auto_cache[key] = "adaptive"
-        return "adaptive"
-    import time as _time
-    best, best_t = None, float("inf")
-    # fused8 differs from fused only when the SWAR path is active —
-    # otherwise run_fused_levels ignores i8_carrier and probing it would
-    # compile+time an identical program twice.
-    cands = (("fused8", "fused", "phased", "hybrid")
-             if _swar_mode(g, max_it) else ("fused", "phased", "hybrid"))
-    for cand in cands:
-        fn = _variant_fn(cand)
-        int(fn(g, source, max_it)[1])              # compile + warm
-        t0 = _time.perf_counter()
-        int(fn(g, source, max_it)[1])
-        dt = _time.perf_counter() - t0
-        if dt < best_t:
-            best, best_t = cand, dt
-    _auto_cache[key] = best
-    return best
-
-
-def _variant_fn(cand: str):
-    if cand == "fused8":
-        return lambda g, s, m: _run_fused_compiled(g, s, m, True)
-    return {"fused": _run_fused_compiled, "phased": _run_phased_compiled,
-            "hybrid": _run_hybrid_compiled}[cand]
-
-
 def run(g: Graph, source: int, *, max_iterations: int | None = None,
-        compute_predecessors: bool = True, warmup: bool = True,
-        variant: str = "auto") -> BfsResult:
-    """variant: 'auto' (measured probe, cached per graph shape),
-    'adaptive' (3-tier spray/dense hybrid on the vertex axis), 'fused'
-    (edge-axis dense supersteps), 'hybrid' (edge-axis dense + spray
-    levels with on-device per-level mode switching), or 'phased'
-    (spray/dense/spray/dense phase-split pipeline)."""
+        compute_predecessors: bool = True, warmup: bool = True) -> BfsResult:
+    """Level-synchronous BFS from ``source`` (3-tier spray/dense levels)."""
     max_it = max_iterations if max_iterations is not None else g.n_vertices + 1
-    if variant == "auto":
-        variant = _auto_variant(g, source, max_it)
-    if variant in ("hybrid", "phased") and fused_supported(g):
-        import time as _time
-        fn = (_run_hybrid_compiled if variant == "hybrid"
-              else _run_phased_compiled)
-        if warmup:
-            int(fn(g, source, max_it)[1])
-        t0 = _time.perf_counter()
-        dist, it = fn(g, source, max_it)
-        it_val = int(it)
-        jax.block_until_ready(dist)
-        elapsed = (_time.perf_counter() - t0) * 1e3
-        res = EnactResult(state=None, iterations=it_val, elapsed_ms=elapsed)
-        distances = dist
-    elif variant in ("fused", "fused8") and fused_supported(g):
-        import time as _time
-        i8 = variant == "fused8"
-        if warmup:
-            int(_run_fused_compiled(g, source, max_it, i8)[1])
-        t0 = _time.perf_counter()
-        dist, it = _run_fused_compiled(g, source, max_it, i8)
-        it_val = int(it)
-        jax.block_until_ready(dist)
-        elapsed = (_time.perf_counter() - t0) * 1e3
-        res = EnactResult(state=None, iterations=it_val, elapsed_ms=elapsed)
-        distances = dist
-    else:
-        res = enact(step, default_converged, g, init(g, source),
-                    max_iterations=max_it, warmup=warmup)
-        distances = res.state.distances
+    res = enact(step, default_converged, g, init(g, source),
+                max_iterations=max_it, warmup=warmup)
+    distances = res.state.distances
     v = g.n_vertices
     if compute_predecessors:
         pred = predecessors_from_distances(g, distances)[:v]

@@ -5,14 +5,13 @@ color.hxx:63-141): random vertex priorities; per iteration each uncolored
 vertex that is the max (resp. min) priority among its uncolored neighbors
 takes color 2*it (resp. 2*it+1). The frontier is the uncolored vertex set.
 
-TPU-native upgrades over the reference:
+Upgrades over the reference:
 
 * m WAVES per sweep: m independent random priority permutations are
   evaluated against ONE expansion of the uncolored mask — round count
   divides by ~m (measured exactly m-fold on rmat graphs) while the per-round
   cost grows only by the per-wave combine, because the per-edge priorities
-  are STATIC (expanded + routed once at init) and the 2m boundary combines
-  share one backward route (ops/segment.py:combine_minmax_multi).
+  are STATIC (expanded + permuted once at init).
 * budget spray path for the shrinking uncolored tail (degree-skew
   tolerant: gate is sum-of-degrees, not max degree).
 """
@@ -34,7 +33,7 @@ from essentials_tpu.ops.sparse_advance import (
     SPRAY_BUDGET, SPRAY_K)
 
 # independent priority waves per sweep (round count divides by ~WAVES;
-# each extra wave costs one fused minmax scan + two shared-route payloads)
+# each extra wave costs one MAX and one MIN combine)
 WAVES = 8
 IMAX = np.iinfo(np.int32).max
 
@@ -59,16 +58,10 @@ class ColorResult(NamedTuple):
 
 def _expand_pris_to_csc(g: Graph, pris):
     """Static per-edge priorities pris[j][src(e)] in CSC order."""
-    from essentials_tpu.ops.segment import (expand_multi_then_route,
-                                            expand_vertex_to_edges,
+    from essentials_tpu.ops.segment import (expand_vertex_to_edges,
                                             apply_permutation)
     ep = g.n_edges_padded
     vals = tuple(pris[j] for j in range(pris.shape[0]))
-    if g.off_route_csr is not None and g.route_fwd is not None:
-        from essentials_tpu.ops.cube_router import chainable
-        if chainable(g.off_route_csr.plan, g.route_fwd):
-            return expand_multi_then_route(vals, g.off_route_csr,
-                                           g.route_fwd, n_valid=ep)
     out = []
     for v in vals:
         e = expand_vertex_to_edges(v, g.row_offsets, ep)
@@ -111,11 +104,8 @@ def _dense_sweep(g: Graph, state: ColorState):
     from essentials_tpu.ops.advance import _expand_and_route
     from essentials_tpu.ops.configs import AdvanceIO
     active, _ = _expand_and_route(g, state.frontier, AdvanceIO.VERTICES, ())
-    if g.off_route_csc is not None:
-        from essentials_tpu.ops.segment import combine_minmax_multi
-        return combine_minmax_multi(list(state.pri_csc), active,
-                                    g.off_route_csc, g.csc_seg_flags)
-    # non-routed fallback (CPU tests): per-wave masked combines
+    # a self-loop is no neighbor: it would tie a vertex with itself
+    active = active & (g.csc_src_indices != g.csc_dst_indices)
     from essentials_tpu.ops.segment import combine_by_offsets
     outs = []
     for pe in state.pri_csc:
@@ -146,7 +136,8 @@ def step(g: Graph, state: ColorState, it) -> ColorState:
     def sparse(_):
         # budgeted spray: enumerate exactly the uncolored set's out-edges;
         # per-wave priorities expand by the per-segment-constant trick
-        _, nb, _, valid = spray_candidates(g, fidx, offs, deg, SPRAY_BUDGET)
+        e, nb, _, valid = spray_candidates(g, fidx, offs, deg, SPRAY_BUDGET)
+        valid = valid & (nb != g.src_indices[e])
         pfx = jnp.cumsum(deg) - deg
         outs = []
         for j in range(WAVES):
@@ -187,13 +178,13 @@ def step(g: Graph, state: ColorState, it) -> ColorState:
 # a per-vertex palette of size deg+1; per round, the HIGHER-(deg,id)-rank
 # endpoint of every conflicting edge rehashes. Conflicts decay
 # geometrically (P(re-conflict) ~ 1/(deg+1)), so round count is ~log E
-# instead of Jones-Plassmann's priority-chain depth (measured 100 rounds
-# x ~85 ms dense sweeps = 8.5 s at rmat20 for the JP/8-wave path). The
+# instead of Jones-Plassmann's priority-chain depth (100 rounds at rmat20
+# for the JP/8-wave path). The
 # detection advance runs dense only while the recolored set is large;
 # the budgeted spray path covers the shrinking tail (conflicts can only
 # involve a vertex recolored last round, so its out-edges suffice on
 # symmetric graphs). Trades color-count quality (<= maxdeg+1, typically a
-# few x chromatic) for a ~20x round reduction — the reference's JP
+# few x chromatic) for far fewer rounds — the reference's JP
 # formulation is kept as the default variant for parity
 # (color.hxx:96-141).
 
@@ -292,9 +283,7 @@ def run(g: Graph, *, seed: int = 0, max_iterations: int | None = None,
 
     'auto' picks 'spec' exactly where JP's cost model explodes: above the
     spray threshold the dense sweep costs O(E) and JP's priority-chain
-    depth multiplies it (measured 8.3 s vs 206 ms at rmat20, VERDICT r3
-    weak #4); below it both variants are milliseconds and JP's better
-    color count wins."""
+    depth multiplies it; below it JP's better color count wins."""
     max_it = max_iterations if max_iterations is not None else g.n_vertices + 1
     if variant == "auto":
         variant = "spec" if spray_enabled(g) else "jp"

@@ -3,7 +3,7 @@
 Reference parity: gunrock::geo (/root/reference/include/gunrock/algorithms/
 geo.hxx:28-397): pure parallel_for app; per iteration each unlocated vertex
 takes the spatial center of its located neighbors (1 neighbor -> copy,
-2 -> haversine midpoint, >2 -> spatial median). TPU-native: neighbor
+2 -> haversine midpoint, >2 -> spatial median). Here neighbor
 aggregation happens in 3-D Cartesian space (sum + normalize = spherical
 centroid, the standard robust approximation of the spatial mean); the
 spatial-median refinement is a fixed number of Weiszfeld sweeps, each one

@@ -8,8 +8,8 @@ Reference parity:
 - generate::random::uniform_distribution
   (/root/reference/include/gunrock/algorithms/generate/random.hxx:22-34)
 
-On TPU these are XLA built-ins (vectorized searchsorted; a single
-hardware-efficient sort; counter-based RNG) — wrapped here so algorithm code
+These are XLA built-ins (vectorized searchsorted; one sort; counter-based
+RNG) — wrapped here so algorithm code
 reads like the reference's.
 """
 

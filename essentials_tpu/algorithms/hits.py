@@ -66,12 +66,11 @@ def spmv_supported(g: Graph) -> bool:
 from functools import partial as _partial
 
 
-@_partial(jax.jit, static_argnums=(2,))
-def _run_spmv_compiled(g: Graph, plan, max_iterations, hub0=None):
+@_partial(jax.jit, static_argnums=(1,))
+def _run_spmv_compiled(g: Graph, max_iterations, hub0=None):
     """Both half-steps (auth[d] += hub[s], hub[s] += auth[d]) as ONE
-    unweighted SpMV-engine call each (VERDICT r4 #2 port — shares the
-    windowed/chain kernels instead of the generic 2-route sweeps).
-    hub0: optional initial hub vector (benchmark replay guard)."""
+    unweighted pull SpMV each (valid when A == A^T).
+    hub0: optional initial hub vector."""
     from essentials_tpu.algorithms.pr import _spmv_engine_call
     mask = g.vertex_mask()
     ones = jnp.where(mask, 1.0, 0.0).astype(jnp.float32)
@@ -84,9 +83,9 @@ def _run_spmv_compiled(g: Graph, plan, max_iterations, hub0=None):
 
     def body(c):
         auth, hub, _, it = c
-        new_auth = _spmv_engine_call(g, plan, hub, unit=True)
+        new_auth = _spmv_engine_call(g, hub, unit=True)
         new_auth = jnp.where(mask, new_auth[:auth.shape[0]], 0.0)
-        new_hub = _spmv_engine_call(g, plan, new_auth, unit=True)
+        new_hub = _spmv_engine_call(g, new_auth, unit=True)
         new_hub = jnp.where(mask, new_hub[:hub.shape[0]], 0.0)
         na = new_auth / jnp.maximum(jnp.linalg.norm(new_auth), 1e-12)
         nh = new_hub / jnp.maximum(jnp.linalg.norm(new_hub), 1e-12)
@@ -100,21 +99,18 @@ def _run_spmv_compiled(g: Graph, plan, max_iterations, hub0=None):
 
 def run(g: Graph, *, max_iterations: int = 50,
         warmup: bool = True, variant: str = "auto") -> HitsResult:
-    """variant: 'auto' (SpMV engine on symmetric graphs — windowed
-    3-kernel where the plan builds), 'spmv', 'generic'."""
+    """variant: 'auto' (SpMV engine on symmetric graphs, else generic),
+    'spmv', 'generic'."""
     v = g.n_vertices
     if variant in ("auto", "spmv") and spmv_supported(g):
         import time as _time
-        from essentials_tpu.algorithms.pr import spmv_plan
-        plan = spmv_plan(g)
         if warmup:
-            int(_run_spmv_compiled(g, plan, max_iterations)[2])
+            jax.block_until_ready(_run_spmv_compiled(g, max_iterations))
         t0 = _time.perf_counter()
-        auth, hub, it = _run_spmv_compiled(g, plan, max_iterations)
-        it_val = int(it)
-        jax.block_until_ready(auth)
-        return HitsResult(auth[:v], hub[:v], it_val,
-                          (_time.perf_counter() - t0) * 1e3)
+        auth, hub, it = jax.block_until_ready(
+            _run_spmv_compiled(g, max_iterations))
+        elapsed = (_time.perf_counter() - t0) * 1e3
+        return HitsResult(auth[:v], hub[:v], int(it), elapsed)
     res: EnactResult = enact(step, converged, g, init(g),
                              max_iterations=max_iterations, warmup=warmup)
     return HitsResult(res.state.auth[:v], res.state.hub[:v],

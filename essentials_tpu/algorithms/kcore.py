@@ -4,7 +4,7 @@ Reference parity: gunrock::kcore (/root/reference/include/gunrock/algorithms/
 kcore.hxx:148-199): for k = 1,2,...: repeatedly delete vertices with
 remaining degree < k (their core number is k-1... the reference assigns k to
 vertices removed *during* round k); converges when all vertices deleted.
-TPU-native: one while_loop over (k, inner peeling) flattened into a single
+One while_loop over (k, inner peeling) flattened into a single
 step function — a vertex's core number is the largest k at which it survives
 the peeling of round k.
 """
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from essentials_tpu.framework.enactor import enact, EnactResult
 from essentials_tpu.graph.graph import Graph
-from essentials_tpu.ops import advance, Combine
+from essentials_tpu.ops import advance_count
 from essentials_tpu.ops.sparse_advance import (
     spray_enabled, compact_frontier, frontier_out_degree, spray_candidates,
     spray_dedup, SPRAY_BUDGET, SPRAY_K, TINY_BUDGET, TINY_K)
@@ -40,23 +40,6 @@ class KcoreResult(NamedTuple):
     elapsed_ms: float
 
 
-# trace-time engine toggles. Measured at rmat20 (benchmarks/_kcore_ab.py,
-# replay protocol, same-session chip):
-#   fold=1 cascade=1 chain=1: 2118.7 ms / 576 waves
-#   fold=1 cascade=0 chain=1: 2078.2 ms / 636 waves
-#   fold=1 cascade=1 chain=0: 2267.6 ms
-#   fold=1 cascade=0 chain=0: 2237.6 ms
-#   fold=0 cascade=0 chain=1: 1839.1 ms / 814 waves  <- DEFAULT (r4: 2015)
-# The k-jump fold and the tiny-cascade inner loop are measured NET
-# NEGATIVE: the fold's extra per-wave [Vp] passes (~0.37 ms x 636) cost
-# more than the 178 skipped bump-only waves saved (~0.5 ms each), and
-# the cascade's bigger switch body taxes every wave. Only the fused
-# advance_count dense branch survives as default.
-_KJUMP_FOLD = False        # bump k inside the wave (vs a cheap skip wave)
-_TINY_CASCADE = False      # inner while_loop over tiny cascades
-_DENSE_CHAIN = True        # dense waves on the fused advance_count chain
-
-
 def init(g: Graph) -> KcoreState:
     deg = jnp.where(g.vertex_mask(), g.out_degrees(), 0).astype(jnp.int32)
     core = jnp.zeros(g.n_vertices_padded, jnp.int32)
@@ -72,35 +55,19 @@ def step(g: Graph, state: KcoreState, it, spray_override=None) -> KcoreState:
     path (O(sum of peeled degrees), degree-skew tolerant) instead of the
     dense O(E) advance.
 
-    Candidate tracking (round 3): within one k level, the next wave's
+    Candidate tracking: within one k level, the next wave's
     peel set is a subset of the current wave's touched neighbors — the
     spray branch already holds that set (``nb``), so it dedups it into a
     tracking list and the NEXT sparse wave filters the list instead of
-    paying compact_frontier's [Vp]-sized sort (~1 ms at V=1M, formerly
-    once per wave — the dominant per-wave cost of the 814-wave rmat20
-    run). The full compaction remains only where the subset argument
-    breaks: after a k bump and after a dense wave."""
+    paying compact_frontier's [Vp]-sized sort once per wave. The full
+    compaction remains only where the subset argument breaks: after a k
+    bump and after a dense wave."""
     core, deg, alive, k, fidx, fvalid = state
     vp = g.n_vertices_padded
     pad = g.pad_vertex
     imax = jnp.iinfo(jnp.int32).max
 
-    if _KJUMP_FOLD:
-        # k-jump folded INTO the wave: an empty peel used to burn a whole
-        # iteration just bumping k (178 of rmat20's 814 iterations); the
-        # bump happens up front and the same iteration peels at the new
-        # level. MEASURED NET NEGATIVE at rmat20 (see toggle notes).
-        peel0 = alive & (deg < k)
-        min_alive_deg = jnp.min(jnp.where(alive, deg, imax))
-        bumped = jnp.logical_not(jnp.any(peel0))
-        k = jnp.where(bumped, jnp.maximum(k + 1, min_alive_deg + 1), k)
-        peel = alive & (deg < k)
-        # the tracking list is only a superset of the next peel WITHIN
-        # one k level — a bump invalidates it (the new level peels
-        # arbitrary vertices, not just last wave's touched neighbors)
-        fvalid = fvalid & ~bumped
-    else:
-        peel = alive & (deg < k)
+    peel = alive & (deg < k)
     # removed vertices get core number k-1
     core = jnp.where(peel, k - 1, core)
     alive = alive & ~peel
@@ -108,12 +75,7 @@ def step(g: Graph, state: KcoreState, it, spray_override=None) -> KcoreState:
     nofidx = jnp.full(SPRAY_K, pad, jnp.int32)
 
     def dense(_):
-        if _DENSE_CHAIN:
-            from essentials_tpu.ops import advance_count
-            out = advance_count(g, peel)
-        else:
-            out = advance(g, lambda e: 1, peel, combine=Combine.SUM,
-                          with_frontier=False)
+        out = advance_count(g, peel)
         return core, deg - out.astype(jnp.int32), alive, nofidx, \
             jnp.asarray(False)
 
@@ -126,8 +88,8 @@ def step(g: Graph, state: KcoreState, it, spray_override=None) -> KcoreState:
         def spray_wave(budget, kk):
             """Budget-tiered spray wave: gather/sort costs scale with the
             tier's budget, so the many late-cascade waves that peel a
-            handful of vertices run the tiny tier (~5x cheaper fixed
-            costs), like bfs.step's 3-way ladder."""
+            handful of vertices run the tiny tier, like bfs.step's 3-way
+            ladder."""
             def go(_):
                 idx = jax.lax.cond(
                     fvalid,
@@ -147,53 +109,6 @@ def step(g: Graph, state: KcoreState, it, spray_override=None) -> KcoreState:
                 return core, deg2, alive, nidx, ncnt <= kk
             return go
 
-        def tiny_cascade(_):
-            """Whole TINY cascade in ONE dispatch (round 5): while the
-            next peel set stays tiny, tracked, and within budget, keep
-            peeling inside an inner while_loop whose per-wave ops are
-            all [TINY_K]-scale — the outer iteration's [Vp] passes and
-            switch machinery were ~1 ms x 500+ waves at rmat20."""
-            big = jnp.int32(2 ** 30)
-            idx0 = jax.lax.cond(
-                fvalid,
-                lambda: spray_dedup(fidx[:TINY_K], peel[fidx[:TINY_K]],
-                                    TINY_K, pad)[1],
-                lambda: compact_frontier(peel, TINY_K, pad))
-
-            def cond_fn(c):
-                return c[5]
-
-            def body(c):
-                core_, deg_, alive_, idxl, _, _, tok, it_ = c
-                offs, d0 = frontier_out_degree(g, idxl)
-                _, nb, _, valid = spray_candidates(g, idxl, offs, d0,
-                                                   TINY_BUDGET)
-                deg_ = deg_.at[nb].add(-valid.astype(jnp.int32),
-                                       mode="drop")
-                _, nidx, ncnt = spray_dedup(nb, valid, TINY_K, pad)
-                tok = ncnt <= TINY_K
-                # next peel among the tracked candidates
-                pm = alive_[nidx] & (deg_[nidx] < k) & (nidx != pad)
-                sp = jax.lax.sort(jnp.where(pm, nidx, big))[:TINY_K]
-                pidx = jnp.where(sp < big, sp, pad)
-                offs2, d2 = frontier_out_degree(g, pidx)
-                go = jnp.any(pm) & tok & \
-                    (jnp.sum(d2) <= TINY_BUDGET) & (it_ < 4 * vp)
-                # apply the next peel only when continuing (otherwise the
-                # outer step re-derives it, possibly on another tier)
-                sc = jnp.where(pm & go, nidx, vp)
-                core_ = core_.at[sc].set(k - 1, mode="drop")
-                alive_ = alive_.at[sc].set(False, mode="drop")
-                return core_, deg_, alive_, pidx, nidx, go, tok, it_ + 1
-
-            core2, deg2, alive2, _, nidx, _, tok, _ = jax.lax.while_loop(
-                cond_fn, body,
-                (core, deg, alive, idx0, idx0, jnp.asarray(True),
-                 jnp.asarray(True), jnp.int32(0)))
-            nidx = jnp.concatenate(
-                [nidx, jnp.full(SPRAY_K - TINY_K, pad, jnp.int32)])
-            return core2, deg2, alive2, nidx, tok
-
         # spray gate: the peeled vertices' ORIGINAL out-edges must fit the
         # budget (peeled degree < k only counts surviving neighbors).
         # The tiny tier additionally requires a currently-valid tracking
@@ -211,36 +126,19 @@ def step(g: Graph, state: KcoreState, it, spray_override=None) -> KcoreState:
                                                2, 3)))
         core, deg, alive, fidx, fvalid = jax.lax.switch(
             branch.astype(jnp.int32),
-            [skip,
-             tiny_cascade if _TINY_CASCADE
-             else spray_wave(TINY_BUDGET, TINY_K),
+            [skip, spray_wave(TINY_BUDGET, TINY_K),
              spray_wave(SPRAY_BUDGET, SPRAY_K), dense], None)
     else:
         core, deg, alive, fidx, fvalid = jax.lax.cond(cnt == 0, skip,
                                                       dense, None)
-    if not _KJUMP_FOLD:
-        # empty sweep: jump k past the levels no vertex can peel at
-        min_alive_deg = jnp.min(jnp.where(alive, deg, imax))
-        k = jnp.where(cnt > 0, k, jnp.maximum(k + 1, min_alive_deg + 1))
+    # empty sweep: jump k past the levels no vertex can peel at
+    min_alive_deg = jnp.min(jnp.where(alive, deg, imax))
+    k = jnp.where(cnt > 0, k, jnp.maximum(k + 1, min_alive_deg + 1))
     return KcoreState(core, deg, alive, k, fidx, fvalid)
 
 
 def converged(g: Graph, state: KcoreState, it) -> jax.Array:
     return jnp.logical_not(jnp.any(state.alive))
-
-
-def fused_supported(g: Graph) -> bool:
-    return bool(g.symmetric_layout and g.route_fwd is not None
-                and g.off_route_csr is not None)
-
-
-from functools import partial as _partial
-
-
-@_partial(jax.jit, static_argnums=(1,))
-def _run_fused_compiled(g, max_it):
-    from essentials_tpu.ops.fused_kcore import run_fused_kcore
-    return run_fused_kcore(g, max_it)
 
 
 def _step_spray_on(g, state, it):
@@ -256,26 +154,11 @@ _STEP_BY_OVERRIDE = {None: step, True: _step_spray_on,
 
 
 def run(g: Graph, *, max_iterations: int | None = None,
-        warmup: bool = True, variant: str = "auto",
-        spray_override=None) -> KcoreResult:
-    """variant: 'auto' (fused when supported), 'fused' (edge-axis 3-kernel
-    peel waves, ops/fused_kcore.py), or 'adaptive' (vertex-axis sweeps
-    with spray). spray_override forces the adaptive path's spray branch
-    on/off regardless of graph size (tests use it to drive the tracked-
-    candidate waves on small graphs)."""
+        warmup: bool = True, spray_override=None) -> KcoreResult:
+    """Vertex-axis peeling sweeps with spray waves. spray_override forces
+    the spray branch on/off regardless of graph size (tests use it to
+    drive the tracked-candidate waves on small graphs)."""
     max_it = max_iterations if max_iterations is not None else 4 * g.n_vertices + 8
-    if variant == "auto":
-        variant = "fused" if fused_supported(g) else "adaptive"
-    if variant == "fused" and fused_supported(g):
-        import time as _time
-        if warmup:
-            int(_run_fused_compiled(g, max_it)[1])
-        t0 = _time.perf_counter()
-        core, it = _run_fused_compiled(g, max_it)
-        it_val = int(it)
-        jax.block_until_ready(core)
-        elapsed = (_time.perf_counter() - t0) * 1e3
-        return KcoreResult(core[:g.n_vertices], it_val, elapsed)
 
     # step_fn is a static argnum of the enactor's jit: pass a STABLE
     # object per spray_override value so repeat calls hit the jit cache.

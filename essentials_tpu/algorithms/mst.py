@@ -2,7 +2,7 @@
 
 Reference parity: gunrock::mst (/root/reference/include/gunrock/algorithms/
 mst.hxx:95-260): per round, each supervertex picks its min-weight outgoing
-edge (atomicMin + tiebreak there), merges, pointer-jumps. TPU-native: the
+edge (atomicMin + tiebreak there), merges, pointer-jumps. Here the
 whole round is segment-MIN reductions keyed by component id plus a
 fixed-depth pointer-jumping loop; mutual hooks are broken by hooking the
 larger root under the smaller; weight ties break on a *canonical undirected
@@ -63,34 +63,23 @@ def _expand_by_src(g: Graph, vals):
 
 
 def _expand_by_dst_to_csr(g: Graph, v):
-    """v[dst(e)] on the CSR edge axis: expand over the CSC offsets, route
-    CSC->CSR (fused chain when available)."""
-    from essentials_tpu.ops.segment import (expand_multi_then_route,
-                                            expand_vertex_to_edges,
+    """v[dst(e)] on the CSR edge axis: expand over the CSC offsets, permute
+    CSC->CSR."""
+    from essentials_tpu.ops.segment import (expand_vertex_to_edges,
                                             apply_permutation)
     ep = g.n_edges_padded
-    if g.off_route_csc is not None and g.route_bwd is not None:
-        from essentials_tpu.ops.cube_router import chainable
-        if chainable(g.off_route_csc.plan, g.route_bwd):
-            return expand_multi_then_route((v,), g.off_route_csc,
-                                           g.route_bwd, n_valid=ep)[0]
     exp = expand_vertex_to_edges(v, g.csc_offsets, ep)
     return apply_permutation(g.csc_edge_ids, exp)
 
 
 def _combine_src_min(g: Graph, vals: jax.Array) -> jax.Array:
-    from essentials_tpu.ops.segment import (combine_by_offsets_routed,
-                                            combine_by_offsets)
-    if g.off_route_csr is not None:
-        return combine_by_offsets_routed(vals, g.off_route_csr, Combine.MIN,
-                                         g.csr_seg_flags)
+    from essentials_tpu.ops.segment import combine_by_offsets
     return combine_by_offsets(vals, g.row_offsets, Combine.MIN,
                               g.csr_seg_flags)
 
 
 def step(g: Graph, state: MstState, it) -> MstState:
-    """One Borůvka round, two-level argmin (VERDICT round-1 item #5,
-    rebuilt sort-centric in round 5):
+    """One Borůvka round, two-level argmin:
 
     edge level (static CSR segments, gather-free engine): per VERTEX, the
     lexicographic-min cross edge (weight, then dst) — valid pre-reduction
@@ -100,8 +89,7 @@ def step(g: Graph, state: MstState, it) -> MstState:
     winning edge) so the vertex level needs no comp[col[e]] gather.
 
     vertex level: per-COMPONENT winner by ONE 4-key device sort
-    (comp, w, cu, cv) — group heads are the argmins (measured 2.6 ms vs
-    ~40 ms for the segment_min scatter/gather ladder at 1M rows on v5e).
+    (comp, w, cu, cv) — group heads are the argmins.
     Pointer jumping carries its convergence flag in the loop state so
     each iteration costs ONE gather, not two."""
     comp, in_mst, _ = state

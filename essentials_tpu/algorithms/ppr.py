@@ -117,6 +117,7 @@ def cpu_reference(csr, seed: int, alpha: float = 0.15, eps: float = 1e-6,
         nr = r.copy()
         nr[frontier] = 0.0
         for i, u in enumerate(frontier):
-            nr[cols[off[u]:off[u + 1]]] += push[i]
+            # add.at: a duplicated edge pushes once per copy
+            np.add.at(nr, cols[off[u]:off[u + 1]], push[i])
         r = nr
     return p.astype(np.float32)

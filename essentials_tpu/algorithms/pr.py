@@ -2,8 +2,8 @@
 
 Reference parity: gunrock::pr (/root/reference/include/gunrock/algorithms/
 pr.hxx:77-216): precomputed inverse out-weight-sums, dangling-rank
-redistribution, atomicAdd spread, L1/L-inf convergence. TPU-native: the
-spread is one segment-SUM over the dst-sorted edge axis; convergence is an
+redistribution, atomicAdd spread, L1/L-inf convergence. The spread is
+one segment-SUM over the dst-sorted edge axis; convergence is an
 on-device reduction inside the while_loop (the reference pays a host
 round-trip per iteration, pr.hxx:155-178).
 """
@@ -64,105 +64,20 @@ def converged(g: Graph, state: PrState, it) -> jax.Array:
     return state.err < state.tol
 
 
-def fused_supported(g: Graph) -> bool:
-    return bool(g.symmetric_layout and g.route_fwd is not None
-                and g.off_route_csr is not None)
-
-
-@partial(jax.jit, static_argnums=(2, 3, 4))
-def _run_fused_compiled(g: Graph, iweights, alpha, tol, max_iterations):
-    """Power iteration on the edge axis (symmetric graphs): state is
-    r_exp[p] = rank[segment(p)] — per iteration: contrib -> route ->
-    weighted segmented SUM -> segment-total broadcast, all edge-axis
-    passes (~8 instead of the generic engine's ~14 + vertex moves).
-    Isolated (degree-0) vertices share one scalar rank (they all equal
-    base every iteration)."""
-    from essentials_tpu.ops.permute import apply_plan
-    from essentials_tpu.ops.scan_kernels import segmented_scan
-    from essentials_tpu.ops.fused_bfs import segment_broadcast_total
-    from essentials_tpu.ops.segment import expand_vertex_to_edges_routed
-
-    ep = g.n_edges_padded
-    n = g.n_vertices
-    route = g.off_route_csr
-    n_seg = route.n_seg
-    iw_v = jnp.pad(iweights, (0, n_seg - iweights.shape[0]))
-    iw_exp = expand_vertex_to_edges_routed(iw_v, route)
-    r_exp0 = jnp.full(ep, 1.0 / n, jnp.float32)
-    valid = (jnp.arange(ep) < g.n_edges)
-    rep = g.csc_seg_flags & valid                   # segment representatives
-    deg0 = (g.row_offsets[1:] - g.row_offsets[:-1]) == 0
-    n_iso = jnp.sum(deg0 & g.vertex_mask()).astype(jnp.float32)
-
-    def cond(c):
-        r_exp, r_iso, err, it = c
-        return (it < max_iterations) & (err > tol)
-
-    def body(c):
-        r_exp, r_iso, _, it = c
-        dangling = jnp.sum(jnp.where(rep & (iw_exp == 0.0), r_exp, 0.0)) \
-            + n_iso * r_iso
-        base = (1.0 - alpha) / n + alpha * dangling / n
-        contrib = r_exp * iw_exp
-        z = apply_plan(contrib, g.route_fwd, n_valid=ep)
-        m = jnp.where(valid, z * g.csc_values, 0.0)
-        S = segmented_scan(m, g.csc_seg_flags, "add")
-        pulled = segment_broadcast_total(S, g.csc_seg_flags)
-        r_new = jnp.where(valid, base + pulled, r_exp)
-        err = jnp.sum(jnp.where(rep, jnp.abs(r_new - r_exp), 0.0)) \
-            + n_iso * jnp.abs(base - r_iso)
-        return r_new, base, err, it + 1
-
-    r_exp, r_iso, _, it = jax.lax.while_loop(
-        cond, body, (r_exp0, jnp.float32(1.0 / n), jnp.float32(jnp.inf),
-                     jnp.int32(0)))
-    # collapse to the vertex axis
-    picked = apply_plan(r_exp, route.inv_plan, n_valid=n_seg + 1)
-    ff = segmented_scan(picked, route.run_start, "first")
-    ranks = jnp.where(route.seg_len > 0, ff[:n_seg], r_iso)
-    vp = g.n_vertices_padded
-    ranks = jnp.where(g.vertex_mask(), ranks[:vp], 0.0)
-    return ranks, it
-
-
-def _spmv_engine_call(g, plan, x, unit: bool = False):
-    """One y = A @ x on the best available engine: windowed 3-kernel
-    (plan is not None), the 7-kernel fused chain, or the generic pull
-    path. Trace-time dispatch (plan rides as a jit argument). unit=True
-    drops the weight factor (unweighted sum)."""
+def _spmv_engine_call(g, x, unit: bool = False):
+    """One y = A @ x on the pull engine; unit=True drops the weight factor
+    (unweighted sum)."""
     from essentials_tpu.algorithms import spmv as SP
-    from essentials_tpu.ops import neighbor_reduce, Combine
-    if plan is not None:
-        from essentials_tpu.ops.windowed_spmv import spmv_windowed as _w
-        return _w(g, plan, x, unit=unit)
-    from essentials_tpu.ops.fused_spmv import spmv_fused as _f
-    if SP.fused_supported(g):
-        return _f(g, x, unit=unit)
     if unit:
         return neighbor_reduce(g, lambda e: e.dst_vals[0],
                                dst_values=(x,), combine=Combine.SUM)
     return SP.spmv_pull(g, x)
 
 
-def spmv_plan(g: Graph):
-    """The windowed SpMV plan when it builds on this backend, else None
-    (callers fall back to the chain/pull engines)."""
-    from essentials_tpu.algorithms import spmv as SP
-    import jax as _jax
-    if _jax.default_backend() == "tpu" and SP.fused_supported(g) \
-            and getattr(g.route_bwd, "form", None) == "tfbc":
-        return SP.windowed_plan(g)
-    return None
-
-
-@partial(jax.jit, static_argnums=(5,))
-def _run_spmv_compiled(g: Graph, plan, iweights, alpha, tol,
-                       max_iterations):
-    """Power iteration with the whole spread as ONE SpMV-engine call per
-    iteration (windowed: 3 kernels) — the VERDICT r4 #2 port: the fused
-    chain IS a weighted advance, so PR shares it instead of cloning an
-    edge-axis module. State stays on the vertex axis ([V] ops are noise
-    next to the [E] sweep)."""
+@partial(jax.jit, static_argnums=(4,))
+def _run_spmv_compiled(g: Graph, iweights, alpha, tol, max_iterations):
+    """Power iteration with the whole spread as ONE pull SpMV per
+    iteration (valid when A == A^T). State stays on the vertex axis."""
     n = g.n_vertices
     mask = g.vertex_mask()
     r0 = jnp.where(mask, 1.0 / n, 0.0).astype(jnp.float32)
@@ -177,7 +92,7 @@ def _run_spmv_compiled(g: Graph, plan, iweights, alpha, tol,
         dangling = jnp.sum(jnp.where(dang_mask, r, 0.0))
         base = (1.0 - alpha) / n + alpha * dangling / n
         contrib = r * iweights
-        spread = _spmv_engine_call(g, plan, contrib)
+        spread = _spmv_engine_call(g, contrib)
         if spread.shape[0] < r.shape[0]:
             spread = jnp.pad(spread, (0, r.shape[0] - spread.shape[0]))
         r_new = jnp.where(mask, base + spread[:r.shape[0]], 0.0)
@@ -192,39 +107,21 @@ def _run_spmv_compiled(g: Graph, plan, iweights, alpha, tol,
 def run(g: Graph, *, alpha: float = 0.85, tol: float = 1e-6,
         max_iterations: int = 500, warmup: bool = True,
         variant: str = "auto") -> PrResult:
-    """variant: 'auto' (spmv engine — windowed 3-kernel where the plan
-    builds), 'spmv', 'fused' (edge-axis power iteration), 'generic'.
-    The spmv engine computes the src-keyed pull sum, which equals PR's
-    dst-keyed spread only when A == A^T (symmetric layout); directed
-    graphs use the fused/generic push formulation."""
+    """variant: 'auto' (spmv on symmetric layouts, else generic), 'spmv'
+    or 'generic'. The spmv engine computes the src-keyed pull sum, which
+    equals PR's dst-keyed spread only when A == A^T (symmetric layout);
+    directed graphs use the generic push formulation."""
     if (variant == "auto" and g.symmetric_layout) or variant == "spmv":
         import time as _time
         st0 = init(g, alpha, tol)
-        plan = spmv_plan(g)
         if warmup:
-            int(_run_spmv_compiled(g, plan, st0.iweights, alpha, tol,
-                                   max_iterations)[1])
+            jax.block_until_ready(_run_spmv_compiled(
+                g, st0.iweights, alpha, tol, max_iterations))
         t0 = _time.perf_counter()
-        ranks, it = _run_spmv_compiled(g, plan, st0.iweights, alpha, tol,
-                                       max_iterations)
-        it_val = int(it)
-        jax.block_until_ready(ranks)
-        return PrResult(ranks[:g.n_vertices], it_val,
-                        (_time.perf_counter() - t0) * 1e3)
-    use_fused = variant == "fused" and fused_supported(g)
-    if use_fused:
-        import time as _time
-        st0 = init(g, alpha, tol)
-        if warmup:
-            int(_run_fused_compiled(g, st0.iweights, alpha, tol,
-                                    max_iterations)[1])
-        t0 = _time.perf_counter()
-        ranks, it = _run_fused_compiled(g, st0.iweights, alpha, tol,
-                                        max_iterations)
-        it_val = int(it)
-        jax.block_until_ready(ranks)
-        return PrResult(ranks[:g.n_vertices], it_val,
-                        (_time.perf_counter() - t0) * 1e3)
+        ranks, it = jax.block_until_ready(_run_spmv_compiled(
+            g, st0.iweights, alpha, tol, max_iterations))
+        elapsed = (_time.perf_counter() - t0) * 1e3
+        return PrResult(ranks[:g.n_vertices], int(it), elapsed)
     res: EnactResult = enact(step, converged, g, init(g, alpha, tol),
                              max_iterations=max_iterations, warmup=warmup)
     return PrResult(res.state.ranks[:g.n_vertices], res.iterations,

@@ -3,8 +3,7 @@
 Reference parity: gunrock::spmv (/root/reference/include/gunrock/algorithms/
 spmv.hxx:77-131): pull variant = segmented reduce over CSR rows
 (neighborreduce), push variant = scatter-add over out-edges. Both are the
-same sorted segment-SUM here, running on the fused cube-router + segmented
-Pallas scan engine (ops/cube_router.py, ops/scan_kernels.py).
+same sorted segment-SUM here, on the segment engine (ops/segment.py).
 """
 
 from __future__ import annotations
@@ -32,52 +31,6 @@ def spmv_pull(g: Graph, x: jax.Array) -> jax.Array:
                            dst_values=(x,), combine=Combine.SUM)
 
 
-def fused_supported(g: Graph) -> bool:
-    from essentials_tpu.ops.fused_spmv import fused_spmv_supported
-    return g.csc_values is not None and fused_spmv_supported(g)
-
-
-_windowed_plans: dict = {}
-
-
-def windowed_plan(g: Graph):
-    """Build (once per graph, cached in-process) the 3-kernel windowed
-    plan; None when the graph is unsupported (ops/windowed_spmv.py).
-
-    Cache entries hold a strong reference to the keying row_offsets
-    array, so its id() cannot be recycled by a later graph while the
-    entry lives (an id hit therefore always means the same array)."""
-    key = id(g.row_offsets)
-    hit = _windowed_plans.get(key)
-    if hit is not None and hit[0] is g.row_offsets:
-        return hit[1]
-    from essentials_tpu.ops.windowed_spmv import build_windowed_plan
-    while len(_windowed_plans) > 4:          # bound plan memory: evict oldest
-        _windowed_plans.pop(next(iter(_windowed_plans)))
-    plan = build_windowed_plan(g)
-    _windowed_plans[key] = (g.row_offsets, plan)
-    return plan
-
-
-@jax.jit
-def spmv_windowed(g: Graph, plan, x: jax.Array) -> jax.Array:
-    """3-kernel windowed SpMV (ops/windowed_spmv.py): 4.98 ms at rmat20
-    vs the chain's 7.72 (both bit-exact vs pull). Requires
-    windowed_plan(g) is not None; TPU only (CPU uses the fused/pull
-    paths)."""
-    from essentials_tpu.ops.windowed_spmv import spmv_windowed as _w
-    return _w(g, plan, x)
-
-
-@jax.jit
-def spmv_fused(g: Graph, x: jax.Array) -> jax.Array:
-    """The 7-kernel fused chain (ops/fused_spmv.py): expand + multiply +
-    route + segmented sum + boundary pick with all glue fused into the
-    route kernels. Requires fused_supported(g)."""
-    from essentials_tpu.ops.fused_spmv import spmv_fused as _f
-    return _f(g, x)
-
-
 @jax.jit
 def spmv_push(g: Graph, x: jax.Array) -> jax.Array:
     """Transpose-free push: y[dst] += w * x[src] over the dst-sorted edges —
@@ -87,36 +40,16 @@ def spmv_push(g: Graph, x: jax.Array) -> jax.Array:
                    combine=Combine.SUM, with_frontier=False)
 
 
-def run(g: Graph, x=None, *, variant: str = "auto", seed: int = 0,
+def run(g: Graph, x=None, *, variant: str = "pull", seed: int = 0,
         warmup: bool = True) -> SpmvResult:
-    """variant: 'auto' (windowed 3-kernel on TPU when the plan builds,
-    else fused chain, else pull), 'windowed', 'fused', 'pull', or
-    'push' (A^T @ x)."""
+    """variant: 'pull' (A @ x) or 'push' (A^T @ x)."""
     if x is None:
         key = jax.random.PRNGKey(seed)
         x = jax.random.uniform(key, (g.n_vertices_padded,), jnp.float32)
         x = jnp.where(g.vertex_mask(), x, 0.0)
-    if variant == "auto":
-        # windowed wins at tfbc scale (4.98 vs 7.72 ms at rmat20); the
-        # chain wins at wbc scale (0.73 vs 0.89 ms at rmat18) — fixed
-        # per-kernel costs + merge dominate small graphs
-        if jax.default_backend() == "tpu" and fused_supported(g) \
-                and getattr(g.route_bwd, "form", None) == "tfbc" \
-                and windowed_plan(g) is not None:
-            variant = "windowed"
-        else:
-            variant = "fused" if fused_supported(g) else "pull"
-    if variant == "windowed":
-        plan = windowed_plan(g)
-        if plan is None:
-            raise ValueError("windowed SpMV unsupported for this graph")
-        fn = lambda g, x: spmv_windowed(g, plan, x)  # noqa: E731
-    else:
-        fn = {"fused": spmv_fused, "pull": spmv_pull,
-              "push": spmv_push}[variant]
+    fn = {"pull": spmv_pull, "push": spmv_push}[variant]
     if warmup:
-        from essentials_tpu.utils.timer import fence
-        fence(fn(g, x))
+        jax.block_until_ready(fn(g, x))
     t = Timer().begin()
     y = fn(g, x)
     ms = t.end(sync=y)

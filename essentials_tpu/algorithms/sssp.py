@@ -123,89 +123,11 @@ def step(g: Graph, state: SsspState, it) -> SsspState:
                      fi, fc, fv)
 
 
-def fused_supported(g: Graph) -> bool:
-    """The edge-axis Bellman-Ford sweep needs the symmetric layout and the
-    router plans (same gate as bfs.fused_supported)."""
-    return bool(g.symmetric_layout and g.route_fwd is not None
-                and g.off_route_csr is not None)
-
-
-def predecessors_from_distances(g: Graph, dist: jax.Array) -> jax.Array:
-    """pred[v] = smallest-id in-neighbor u with dist[u] + w(u,v) ==
-    dist[v] (-1 at source / unreached). One full-graph advance (MIN).
-    Exact: dist[v] was produced by the same f32 expression."""
-    imax = jnp.iinfo(jnp.int32).max
-
-    def msg(e):
-        achieves = (e.src_vals[0] + e.weight) == e.dst_vals[0]
-        return jnp.where(achieves, e.src, imax)
-
-    cand = advance(g, msg, None, src_values=(dist,), dst_values=(dist,),
-                   combine=Combine.MIN, with_frontier=False)
-    valid = jnp.isfinite(dist) & (dist > 0) & (cand < imax)
-    return jnp.where(valid, cand, -1)
-
-
-from functools import partial as _partial
-
-
-@_partial(jax.jit, static_argnums=(2,))
-def _run_fused_compiled(g, source, max_it):
-    from essentials_tpu.ops.fused_sssp import run_fused_sssp
-    return run_fused_sssp(g, source, max_it)
-
-
-@_partial(jax.jit, static_argnums=(3,))
-def _run_windowed_compiled(g, plan, source, max_it):
-    from essentials_tpu.ops.windowed_sssp import run_windowed_sssp
-    return run_windowed_sssp(g, plan, source, max_it)
-
-
-def windowed_supported(g: Graph) -> bool:
-    from essentials_tpu.algorithms.pr import spmv_plan
-    from essentials_tpu.ops.windowed_sssp import windowed_sssp_supported
-    return bool(fused_supported(g)
-                and windowed_sssp_supported(g, spmv_plan(g)))
-
-
 def run(g: Graph, source: int, *, max_iterations: int | None = None,
-        warmup: bool = True, variant: str = "auto") -> SsspResult:
-    """variant: 'auto' (fused when supported — it won every measured A/B:
-    rmat20 45 vs 285 ms, road-grid 170 vs 1540 ms), 'adaptive' (3-tier
-    spray/dense frontier Bellman-Ford) or 'fused' (edge-axis dense
-    Bellman-Ford sweeps, 3 kernels/round; symmetric graphs with router
-    plans)."""
+        warmup: bool = True) -> SsspResult:
+    """Frontier Bellman-Ford from ``source`` (3-tier spray/dense rounds)."""
     max_it = max_iterations if max_iterations is not None else g.n_vertices + 1
-    if variant == "auto":
-        # fused wins the measured A/B vs windowed at rmat20 (50.5 vs
-        # 59.0 ms, benchmarks/_sssp_windowed_ab.py): the compact-state
-        # bytes saved are repaid as placement/compact stage-index reads
-        variant = "fused" if fused_supported(g) else "adaptive"
     v = g.n_vertices
-    if variant == "windowed" and windowed_supported(g):
-        import time as _time
-        from essentials_tpu.algorithms.pr import spmv_plan
-        plan = spmv_plan(g)
-        if warmup:
-            int(_run_windowed_compiled(g, plan, source, max_it)[1])
-        t0 = _time.perf_counter()
-        dist, it = _run_windowed_compiled(g, plan, source, max_it)
-        it_val = int(it)
-        jax.block_until_ready(dist)
-        elapsed = (_time.perf_counter() - t0) * 1e3
-        pred = predecessors_from_distances(g, dist)[:v]
-        return SsspResult(dist[:v], pred, it_val, elapsed)
-    if variant == "fused" and fused_supported(g):
-        import time as _time
-        if warmup:
-            int(_run_fused_compiled(g, source, max_it)[1])
-        t0 = _time.perf_counter()
-        dist, it = _run_fused_compiled(g, source, max_it)
-        it_val = int(it)
-        jax.block_until_ready(dist)
-        elapsed = (_time.perf_counter() - t0) * 1e3
-        pred = predecessors_from_distances(g, dist)[:v]
-        return SsspResult(dist[:v], pred, it_val, elapsed)
     res: EnactResult = enact(step, default_converged, g, init(g, source),
                              max_iterations=max_it, warmup=warmup)
     st: SsspState = res.state

@@ -27,7 +27,7 @@ def _build(args, weighted_default=True):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="essentials-tpu",
-                                description="TPU-native graph analytics")
+                                description="graph analytics in JAX")
     p.add_argument("algorithm",
                    choices=["bfs", "sssp", "pr", "ppr", "bc", "color", "kcore",
                             "hits", "spmv", "tc", "mst", "spgemm", "geo"])
@@ -47,8 +47,9 @@ def main(argv=None):
     p.add_argument("--json", action="store_true", help="JSON stats output")
     p.add_argument("--cpu", action="store_true", help="force JAX CPU backend")
     p.add_argument("--variant", default=None,
-                   help="algorithm variant: bfs 'fused'/'adaptive', "
-                        "pr 'fused'/'generic', tc 'dense'/'bitmap'/'sorted'")
+                   help="algorithm variant: pr/hits/bc 'spmv'/'generic', "
+                        "color 'jp'/'spec', spmv 'pull'/'push', "
+                        "tc 'dense'/'sorted'/'shift'")
     args = p.parse_args(argv)
 
     if args.cpu:
@@ -71,18 +72,19 @@ def main(argv=None):
             times.append(run_fn(*a, warmup=False, **kw).elapsed_ms)
         return res, float(np.mean(times))
 
+    kw = {"variant": args.variant} if args.variant else {}
+    if args.variant and name not in ("pr", "hits", "bc", "color", "spmv",
+                                     "tc"):
+        p.error(f"{name} has no --variant")
     if name == "bfs":
-        kw = {"variant": args.variant} if args.variant else {}
-        res, ms = timed(A.bfs.run, g, args.source, **kw)
+        res, ms = timed(A.bfs.run, g, args.source)
         if args.validate:
             errors = compare(res.distances, A.bfs.cpu_reference(csr, args.source))
     elif name == "sssp":
-        kw = {"variant": args.variant} if args.variant else {}
-        res, ms = timed(A.sssp.run, g, args.source, **kw)
+        res, ms = timed(A.sssp.run, g, args.source)
         if args.validate:
             errors = compare(res.distances, A.sssp.cpu_reference(csr, args.source))
     elif name == "pr":
-        kw = {"variant": args.variant} if args.variant else {}
         res, ms = timed(A.pr.run, g, **kw)
         if args.validate:
             errors = compare(res.ranks, A.pr.cpu_reference(csr),
@@ -93,30 +95,28 @@ def main(argv=None):
             errors = compare(res.p, A.ppr.cpu_reference(csr, args.source),
                              atol=1e-5, rtol=1e-3)
     elif name == "bc":
-        res, ms = timed(A.bc.run, g, args.source)
+        res, ms = timed(A.bc.run, g, args.source, **kw)
         if args.validate:
             errors = compare(res.bc_values,
                              A.bc.cpu_reference(csr, sources=[args.source],
                                                 normalize_undirected=False),
                              atol=1e-3, rtol=1e-3)
     elif name == "color":
-        kw = {"variant": args.variant} if args.variant else {}
         res, ms = timed(A.color.run, g, **kw)
         if args.validate:
             errors = A.color.validate(csr, res.colors)
     elif name == "kcore":
-        kw = {"variant": args.variant} if args.variant else {}
-        res, ms = timed(A.kcore.run, g, **kw)
+        res, ms = timed(A.kcore.run, g)
         if args.validate:
             errors = compare(res.core, A.kcore.cpu_reference(csr))
     elif name == "hits":
-        res, ms = timed(A.hits.run, g)
+        res, ms = timed(A.hits.run, g, **kw)
         if args.validate:
             ra, rh = A.hits.cpu_reference(csr)
             errors = compare(res.auth, ra, atol=1e-4, rtol=1e-3) + \
                 compare(res.hub, rh, atol=1e-4, rtol=1e-3)
     elif name == "spmv":
-        res, ms = timed(A.spmv.run, g)
+        res, ms = timed(A.spmv.run, g, **kw)
         if args.validate:
             import jax
             x = np.zeros(g.n_vertices_padded, np.float32)
@@ -124,11 +124,10 @@ def main(argv=None):
             x[:] = np.asarray(jax.random.uniform(key, (g.n_vertices_padded,)))
             x[g.n_vertices:] = 0
             import jax.numpy as jnp
-            r2 = A.spmv.run(g, jnp.asarray(x), warmup=False)
+            r2 = A.spmv.run(g, jnp.asarray(x), warmup=False, **kw)
             errors = compare(r2.y, A.spmv.cpu_reference(csr, x[:g.n_vertices]),
                              atol=1e-4, rtol=1e-4)
     elif name == "tc":
-        kw = {"variant": args.variant} if args.variant else {}
         res, ms = timed(A.tc.run, csr, **kw)
         if args.validate:
             total, vt = A.tc.cpu_reference(csr)

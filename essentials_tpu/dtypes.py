@@ -2,7 +2,7 @@
 
 The reference centers on an "invalid" sentinel per type
 (/root/reference/include/gunrock/util/type_limits.hxx:16-50): -1 for signed
-ints, max for unsigned, NaN for floats. On TPU we keep the same convention for
+ints, max for unsigned, NaN for floats. We keep the same convention for
 API parity, but prefer *dense masks* over sentinel-laden sparse lists: a
 frontier is a bool[V] map, so most sentinel checks disappear. Sentinels remain
 for "no predecessor", "unreached distance", and padded edge slots.

@@ -13,6 +13,15 @@ from essentials_tpu import dtypes
 from essentials_tpu.errors import throw_if
 
 
+def pair_order(major, minor, minor_bound: int) -> np.ndarray:
+    """Stable order by (major, minor) for non-negative ints with
+    minor < minor_bound — np.lexsort((minor, major)) as one stable argsort
+    of a combined int64 key, about twice as fast on large edge lists."""
+    key = np.asarray(major, np.int64) * minor_bound + \
+        np.asarray(minor, np.int64)
+    return np.argsort(key, kind="stable")
+
+
 @dataclass
 class Coo:
     """Coordinate-format sparse matrix / edge list on the host."""

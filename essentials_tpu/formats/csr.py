@@ -13,7 +13,7 @@ import numpy as np
 
 from essentials_tpu import dtypes
 from essentials_tpu.errors import throw_if
-from essentials_tpu.formats.coo import Coo
+from essentials_tpu.formats.coo import Coo, pair_order
 
 _BINARY_VERSION = 1
 
@@ -41,11 +41,12 @@ class Csr:
     def from_coo(cls, coo: Coo, sort_columns: bool = True) -> "Csr":
         """Build CSR from COO (reference: csr_t::from_coo, csr.hxx:79-158).
 
-        Vectorized host build: bincount degrees -> cumsum offsets -> lexsort
-        scatter. Columns within each row are sorted ascending when
+        Vectorized host build: bincount degrees -> cumsum offsets -> stable
+        sort scatter. Columns within each row are sorted ascending when
         ``sort_columns`` (needed by intersection-based algorithms like TC).
         """
-        order = (np.lexsort((coo.col_indices, coo.row_indices)) if sort_columns
+        order = (pair_order(coo.row_indices, coo.col_indices, coo.n_cols)
+                 if sort_columns
                  else np.argsort(coo.row_indices, kind="stable"))
         rows = coo.row_indices[order]
         degrees = np.bincount(rows, minlength=coo.n_rows).astype(dtypes.edge_dtype)

@@ -1,4 +1,4 @@
-"""Frontiers: dense boolean maps over vertices/edges (the TPU-native choice).
+"""Frontiers: dense boolean maps over vertices/edges (the choice static shapes favour).
 
 The reference's primary frontier is a compacted sparse vector with invalid
 sentinels (/root/reference/include/gunrock/framework/frontier/

@@ -1,7 +1,7 @@
 """Device graph: immutable pytree with CSR/CSC/COO views, padded static shapes.
 
 Capability parity with reference include/gunrock/graph/ (graph_t multi-view
-variadic class, builders, conversions, properties) re-designed TPU-first:
+variadic class, builders, conversions, properties) re-designed for XLA:
 instead of per-view template dispatch, one pytree carries edge-centric arrays
 in both source-sorted (CSR) and destination-sorted (CSC) order so every
 operator is a gather + sorted segment reduction with static shapes.

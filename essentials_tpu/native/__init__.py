@@ -2,7 +2,7 @@
 
 Reference parity: the reference's native IO layer (vendored mmio.c,
 /root/reference/include/gunrock/io/detail/mmio.cpp). Build with
-`make -C essentials_tpu/native` (or `python -m essentials_tpu.native.build`);
+`make -C essentials_tpu/native` (built on first use when absent);
 if the shared library is absent, callers fall back to the NumPy paths.
 """
 

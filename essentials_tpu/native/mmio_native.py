@@ -11,6 +11,34 @@ _DIR = os.path.dirname(__file__)
 _SO = os.path.join(_DIR, "libetpu_mmio.so")
 
 _lib = None
+_build_error = None
+
+
+def _build_lib() -> bool:
+    """Build the native parser in place (checkouts ship sources, not .so
+    artifacts). One `make` invocation, serialized by an exclusive lockfile
+    so parallel test workers don't race the compiler."""
+    import subprocess
+    global _build_error
+    try:
+        with open(os.path.join(_DIR, ".build.lock"), "w") as lk:
+            try:
+                import fcntl
+                fcntl.flock(lk, fcntl.LOCK_EX)
+            except ImportError:
+                pass
+            if not os.path.exists(_SO):
+                subprocess.run(["make", "-C", _DIR], check=True,
+                               capture_output=True, timeout=300)
+    except subprocess.CalledProcessError as e:
+        # surface compiler diagnostics instead of the generic ImportError
+        tail = (e.stderr or b"").decode(errors="replace")[-2000:]
+        _build_error = f"`make -C {_DIR}` failed:\n{tail}"
+        return False
+    except (OSError, subprocess.TimeoutExpired) as e:
+        _build_error = f"{type(e).__name__}: {e}"
+        return False
+    return os.path.exists(_SO)
 
 
 class _EtpuCoo(ctypes.Structure):
@@ -29,11 +57,11 @@ def _load_lib():
     global _lib
     if _lib is None:
         if not os.path.exists(_SO):
-            from essentials_tpu.ops.permute import _build_lib
-            _build_lib()        # one `make` builds both native libraries
+            _build_lib()
         if not os.path.exists(_SO):
             raise ImportError(f"native mmio library not built ({_SO}); "
-                              "run: make -C essentials_tpu/native")
+                              f"run: make -C essentials_tpu/native "
+                              f"({_build_error})")
         _lib = ctypes.CDLL(_SO)
         _lib.etpu_load_mtx.restype = ctypes.POINTER(_EtpuCoo)
         _lib.etpu_load_mtx.argtypes = [ctypes.c_char_p, ctypes.c_int]

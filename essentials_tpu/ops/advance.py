@@ -2,8 +2,8 @@
 
 Reference parity: operators::advance::execute and its load-balance kernels
 (/root/reference/include/gunrock/framework/operators/advance/advance.hxx:91-221,
-block_mapped.hxx:38-147, merge_path.hxx:89-113). TPU-native, gather-free
-formulation (see ops/segment.py for the measured rationale):
+block_mapped.hxx:38-147, merge_path.hxx:89-113), on the segment engine of
+ops/segment.py:
 
   CSR side   expand the frontier and any src-keyed vertex arrays to the
              edge axis (telescoping int32 cumsum — exact, no gather);
@@ -16,8 +16,7 @@ formulation (see ops/segment.py for the measured rationale):
 
 The message closure receives an `Edges` view whose fields are all [Ep]
 arrays in CSC order — it must stay elementwise (no indexing into vertex
-arrays; declare those via src_values/dst_values instead, or the XLA gather
-lowering will serialize the edge axis).
+arrays; declare those via src_values/dst_values instead).
 """
 
 from __future__ import annotations
@@ -32,30 +31,23 @@ from essentials_tpu.errors import throw_if
 from essentials_tpu.graph.graph import Graph
 from essentials_tpu.ops.configs import Combine, AdvanceIO
 from essentials_tpu.ops.segment import (
-    combine_identity, combine_by_offsets, combine_by_offsets_routed,
-    expand_vertex_to_edges, expand_multi_routed, apply_permutation)
+    combine_identity, combine_by_offsets, expand_vertex_to_edges,
+    apply_permutation)
 
 
 def _expand_src_multi(g: Graph, vals):
     """Expand src-keyed vertex arrays to the CSR edge axis."""
-    if g.off_route_csr is not None:
-        return expand_multi_routed(tuple(vals), g.off_route_csr)
     return tuple(expand_vertex_to_edges(v, g.row_offsets, g.n_edges_padded)
                  for v in vals)
 
 
 def _expand_dst(g: Graph, v):
     """Expand a dst-keyed vertex array to the CSC edge axis."""
-    if g.off_route_csc is not None:
-        return expand_multi_routed((v,), g.off_route_csc)[0]
     return expand_vertex_to_edges(v, g.csc_offsets, g.n_edges_padded)
 
 
 def _combine_dst(g: Graph, msg, combine: Combine):
     """Segmented combine per destination (CSC order)."""
-    if g.off_route_csc is not None:
-        return combine_by_offsets_routed(msg, g.off_route_csc, combine,
-                                         g.csc_seg_flags)
     return combine_by_offsets(msg, g.csc_offsets, combine, g.csc_seg_flags)
 
 
@@ -92,34 +84,14 @@ def _expand_and_route(g: Graph, frontier, input_kind: AdvanceIO,
     else:
         raise ValueError(input_kind)
 
-    # fast path: every payload comes from the src expansion and both the
-    # offsets route and the CSR->CSC route are cube plans of equal length —
-    # chain them (expand's final kernel + cumsum + route's first kernel
-    # fuse into one pallas_call; ops/cube_router.apply_cube_chain)
-    if to_expand and edge_payload is None and \
-            g.off_route_csr is not None and g.route_fwd is not None:
-        from essentials_tpu.ops.cube_router import chainable
-        from essentials_tpu.ops.segment import expand_multi_then_route
-        if chainable(g.off_route_csr.plan, g.route_fwd):
-            routed = expand_multi_then_route(tuple(to_expand),
-                                             g.off_route_csr, g.route_fwd,
-                                             n_valid=ep)
-            if static_active is None:
-                return routed[-1] != 0, tuple(routed[:-1])
-            return static_active, tuple(routed)
-
     payloads = list(_expand_src_multi(g, to_expand)) if to_expand else []
     if edge_payload is not None:
         payloads.append(edge_payload)
 
     if payloads:
-        if g.route_fwd is not None:
-            from essentials_tpu.ops.permute import apply_plan_multi
-            routed = apply_plan_multi(tuple(payloads), g.route_fwd)
-        else:
-            routed = apply_permutation(g.csc_rank, *payloads)
-            if len(payloads) == 1:
-                routed = (routed,)
+        routed = apply_permutation(g.csc_rank, *payloads)
+        if len(payloads) == 1:
+            routed = (routed,)
     else:
         routed = ()
 
@@ -173,36 +145,12 @@ def advance_multi(g: Graph,
 
 
 def advance_count(g: Graph, frontier: jax.Array) -> jax.Array:
-    """Fused superstep: #active in-edges per destination, int32[Vp].
-
-    The whole edge-axis pipeline (telescoping expand over the CSR offsets
-    route -> CSR->CSC route -> combine prescan over the inverse CSC offsets
-    route) runs as ONE 7-kernel mega-chain (ops/cube_router.py:
-    apply_cube_chain_n) with both scans fused at the route boundaries —
-    zero inter-kernel HBM round trips. OR-reach is ``advance_count(...) > 0``.
+    """#active in-edges per destination, int32[Vp]. OR-reach is
+    ``advance_count(...) > 0``.
 
     Reference parity: the operators::advance + OR/SUM-combine special case
     (advance/advance.hxx:91-221 with a counting/marking functor), which is
     the hot superstep of BFS-like algorithms."""
-    if g.off_route_csr is not None and g.route_fwd is not None \
-            and g.off_route_csc is not None:
-        from essentials_tpu.ops.cube_router import (chainable_n,
-                                                    apply_cube_chain_n)
-        from essentials_tpu.ops.scan_kernels import segmented_scan
-        from essentials_tpu.ops.segment import _to_i32
-        route_src, route_dst = g.off_route_csr, g.off_route_csc
-        plans = [route_src.plan, g.route_fwd, route_dst.inv_plan]
-        if chainable_n(plans):
-            from essentials_tpu.ops.segment import _run_totals
-            iv = _to_i32(frontier.astype(jnp.int32))
-            d = jnp.diff(iv, prepend=jnp.zeros(1, jnp.int32))
-            dd = _run_totals(d, route_src)
-            n_seg = route_dst.n_seg
-            pref = apply_cube_chain_n((dd,), plans, ["incl", "excl"],
-                                      n_valid=n_seg + 1)[0]
-            ff = segmented_scan(pref, route_dst.run_start, "first")
-            return ff[1:] - ff[:-1]
-    # fallback: the generic engine
     res = advance_multi(g, [(lambda e: 1, Combine.SUM)], frontier,
                         with_frontier=False)
     return res[0]
@@ -251,9 +199,5 @@ def advance_edges(g: Graph,
     cond = message_fn(edges)
     fired = (active & cond).astype(jnp.int8)
     # route back CSC -> CSR: csc_edge_ids IS the inverse rank permutation
-    if g.route_bwd is not None:
-        from essentials_tpu.ops.permute import apply_plan
-        back = apply_plan(fired, g.route_bwd)
-    else:
-        back = apply_permutation(g.csc_edge_ids, fired)
+    back = apply_permutation(g.csc_edge_ids, fired)
     return (back != 0) & g.edge_mask()

@@ -2,10 +2,9 @@
 
 Reference parity: operators::batch::execute, which spawns N CPU std::threads
 each running a full GPU job (/root/reference/include/gunrock/framework/
-operators/batch/batch.hxx:61-81; used by BC and PPR). TPU-native: `jax.vmap`
-over the seed axis compiles the whole batch into one program — strictly
-better than thread-per-job (no context contention, MXU/VPU-friendly batched
-shapes).
+operators/batch/batch.hxx:61-81; used by BC and PPR). Here `jax.vmap`
+over the seed axis compiles the whole batch into one program — no context
+contention, batched shapes.
 """
 
 from __future__ import annotations

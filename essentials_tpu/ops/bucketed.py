@@ -1,10 +1,8 @@
 """Degree-bucketed dense segment reduction — the load-balanced schedule.
 
-WHY: XLA lowers scatter/segment primitives to serial loops on TPU (measured
-~19 ms for a 2M-edge sorted segment-sum vs 0.05 ms for elementwise — ~400x
-off roofline). The TPU-native replacement for the reference's merge-path /
-block-mapped load balancing (advance/merge_path.hxx, block_mapped.hxx) is a
-*static dense schedule*:
+An alternative to the reference's merge-path / block-mapped load
+balancing (advance/merge_path.hxx, block_mapped.hxx) that uses no scatter:
+a *static dense schedule*:
 
   - vertices are grouped into power-of-2 degree buckets (host-side, once per
     graph — the graph is immutable);

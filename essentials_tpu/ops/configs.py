@@ -3,8 +3,8 @@
 Reference parity: operators/configs.hxx:31-92 (load_balance_t,
 advance_io_type_t, advance_direction_t, filter_algorithm_t,
 uniquify_algorithm_t). Load-balance variants are gone by construction (the
-edge-centric layout is always balanced); what remains meaningful on TPU is
-the combine monoid and the input kind.
+edge-centric layout is always balanced); what remains meaningful is the
+combine monoid and the input kind.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Reference parity: operators::neighborreduce::execute via mgpu
 transform_segreduce (/root/reference/include/gunrock/framework/operators/
-neighborreduce/neighborreduce.hxx:55-101). Gather-free mirror of advance:
+neighborreduce/neighborreduce.hxx:55-101). Mirror of advance:
 dst-keyed vertex arrays are expanded on the CSC side (where dst is sorted)
 and routed CSC->CSR with one permutation sort; src-keyed arrays expand
 directly over row_offsets; the combine is keyed by source via the CSR
@@ -20,8 +20,8 @@ from essentials_tpu.graph.graph import Graph
 from essentials_tpu.ops.advance import Edges, _expand_src_multi
 from essentials_tpu.ops.configs import Combine
 from essentials_tpu.ops.segment import (
-    combine_identity, combine_by_offsets, combine_by_offsets_routed,
-    expand_vertex_to_edges, expand_multi_routed, apply_permutation)
+    combine_identity, combine_by_offsets, expand_vertex_to_edges,
+    apply_permutation)
 
 
 def neighbor_reduce(g: Graph, message_fn: Callable, *,
@@ -33,33 +33,15 @@ def neighbor_reduce(g: Graph, message_fn: Callable, *,
 
     The Edges view here is in CSR order: src sorted, dst arbitrary.
     Declare vertex-array dependencies via src_values/dst_values — do not
-    index vertex arrays inside the closure (slow gather lowering).
+    index vertex arrays inside the closure.
     """
     ep = g.n_edges_padded
     src_vals = _expand_src_multi(g, tuple(src_values))
     if dst_values:
-        chained = False
-        if g.off_route_csc is not None and g.route_bwd is not None:
-            from essentials_tpu.ops.cube_router import chainable
-            if chainable(g.off_route_csc.plan, g.route_bwd):
-                from essentials_tpu.ops.segment import expand_multi_then_route
-                dst_vals = expand_multi_then_route(
-                    tuple(dst_values), g.off_route_csc, g.route_bwd,
-                    n_valid=ep)
-                chained = True
-        if not chained:
-            if g.off_route_csc is not None:
-                expanded = list(expand_multi_routed(tuple(dst_values),
-                                                    g.off_route_csc))
-            else:
-                expanded = [expand_vertex_to_edges(v, g.csc_offsets, ep)
-                            for v in dst_values]
-            if g.route_bwd is not None:
-                from essentials_tpu.ops.permute import apply_plan_multi
-                dst_vals = apply_plan_multi(tuple(expanded), g.route_bwd)
-            else:
-                routed = apply_permutation(g.csc_edge_ids, *expanded)
-                dst_vals = (routed,) if len(expanded) == 1 else tuple(routed)
+        expanded = [expand_vertex_to_edges(v, g.csc_offsets, ep)
+                    for v in dst_values]
+        routed = apply_permutation(g.csc_edge_ids, *expanded)
+        dst_vals = (routed,) if len(expanded) == 1 else tuple(routed)
     else:
         dst_vals = ()
 
@@ -71,7 +53,4 @@ def neighbor_reduce(g: Graph, message_fn: Callable, *,
     vals = jnp.broadcast_to(jnp.asarray(vals), (ep,))
     ident = combine_identity(combine, vals.dtype)
     vals = jnp.where(edges.active, vals, ident)
-    if g.off_route_csr is not None:
-        return combine_by_offsets_routed(vals, g.off_route_csr, combine,
-                                         g.csr_seg_flags)
     return combine_by_offsets(vals, g.row_offsets, combine, g.csr_seg_flags)

@@ -1,20 +1,10 @@
-"""Pallas scan kernels: bandwidth-rate cumsum and segmented scans.
-
-XLA's cumsum lowering on TPU runs ~40x off HBM roofline (measured 0.4 ms
-for 2M int32 on v5e = 20 GB/s), and `lax.associative_scan` pays the same
-multi-pass tax. These kernels stream the array once through VMEM with a
-carry held in scratch across the (sequential) TPU grid:
-
-  block: [R, 128] tile -> 7 masked lane rolls (log-step inclusive scan)
-         -> sublane log-step scan of row summaries -> add row prefixes
-  grid:  carry scalar(s) in SMEM link consecutive blocks.
-
-Everything is exact for int32 (wrap-around arithmetic — required by the
-telescoping expansion in ops/segment.py) and deterministic for float32.
+"""Inclusive scans over the edge axis: cumsum and segmented scans.
 
 Segmented variants scan (value, start_flag) pairs with the standard
 associative operator  (v1,f1)·(v2,f2) = (f2 ? v2 : op(v1,v2), f1|f2),
 giving per-segment inclusive MIN/MAX/SUM without materializing segment ids.
+int32 sums wrap around exactly, which the telescoping expansion in
+ops/segment.py relies on.
 
 Reference parity: replaces CUB BlockScan + cub::DeviceScan use inside the
 reference's advance kernels (block_mapped.hxx:84-87) at the whole-edge-axis
@@ -23,20 +13,8 @@ level.
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-LANES = 128
-_ROWS = 1024                     # rows per grid block (R*128 elems, 512 KB f32)
-_INTERPRET = False               # set True in tests to run kernels on CPU
-
-
-def _interp():
-    return _INTERPRET or jax.default_backend() != "tpu"
 
 
 def _op_fn(op: str):
@@ -46,301 +24,24 @@ def _op_fn(op: str):
             "first": lambda a, b: a}[op]
 
 
-def _ident(op: str, dtype):
-    dt = jnp.dtype(dtype)
-    if op in ("add", "first"):
-        return dt.type(0)
-    if jnp.issubdtype(dt, jnp.floating):
-        return dt.type(jnp.inf if op == "min" else -jnp.inf)
-    ii = jnp.iinfo(dt)
-    return dt.type(ii.max if op == "min" else ii.min)
-
-
-def _shift_lanes(x, k, fill):
-    """Shift right by k along the lane axis, filling with `fill`."""
-    r = pltpu.roll(x, k, 1)
-    lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(lane < k, fill, r)
-
-
-def _shift_rows(x, k, fill):
-    r = pltpu.roll(x, k, 0)
-    row = jax.lax.broadcasted_iota(jnp.int32, x.shape, 0)
-    return jnp.where(row < k, fill, r)
-
-
-def _pair_combine(op, v, f, pv, pf):
-    """Apply prefix pair (pv, pf) to inclusive-local (v, f): segmented.
-
-    Flags are int32 0/1 (Mosaic cannot roll i1 vectors)."""
-    return jnp.where(f > 0, v, op(pv, v)), f | pf
-
-
-def _block_scan(v, f, op, ident, segmented):
-    """Inclusive (segmented) scan of a [R, 128] block; ``f`` int32 0/1.
-
-    Returns (scanned values, inclusive flag-OR, block summary pair)."""
-    rows = v.shape[0]
-    zero = jnp.zeros((), jnp.int32)
-    k = 1
-    while k < LANES:
-        sv = _shift_lanes(v, k, ident)
-        if segmented:
-            sf = _shift_lanes(f, k, zero)
-            v = jnp.where(f > 0, v, op(sv, v))
-            f = f | sf
-        else:
-            v = op(sv, v)
-        k *= 2
-    # row summaries: last lane of each row
-    rv = v[:, LANES - 1:LANES]                          # [R, 1]
-    rf = f[:, LANES - 1:LANES] if segmented else None
-    # exclusive scan over rows of the summary pairs
-    pv = _shift_rows(rv, 1, ident)
-    pf = _shift_rows(rf, 1, zero) if segmented else None
-    k = 1
-    while k < rows:
-        sv = _shift_rows(pv, k, ident)
-        if segmented:
-            sf = _shift_rows(pf, k, zero)
-            pv = jnp.where(pf > 0, pv, op(sv, pv))
-            pf = pf | sf
-        else:
-            pv = op(sv, pv)
-        k *= 2
-    if segmented:
-        out = jnp.where(f > 0, v, op(pv, v))
-        out_f = f | pf
-        sum_v = jnp.where(rf[-1:] > 0, rv[-1:], op(pv[-1:], rv[-1:]))
-        sum_f = rf[-1:] | pf[-1:]
-        # Mosaic can only extract 32-bit scalars (int8 carriers widen here)
-        if sum_v.dtype.itemsize < 4:
-            sum_v = sum_v.astype(jnp.int32)
-        return out, out_f, (sum_v[0, 0], sum_f[0, 0])
-    out = op(pv, v)
-    return out, None, (op(pv[-1:, :], rv[-1:, :])[0, 0], None)
-
-
-def _scan_kernel(op_name, segmented, x_ref, *rest):
-    if segmented:
-        f_ref, o_ref, carry_v, carry_f = rest
-    else:
-        o_ref, carry_v = rest
-        carry_f = None
-
-    op = _op_fn(op_name)
-    dt = x_ref.dtype
-    ident = _ident(op_name, dt)
-    cdt = carry_v.dtype                      # int32 for int8 carriers
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        carry_v[0] = ident.astype(cdt) if hasattr(ident, "astype") \
-            else jnp.asarray(ident, cdt)
-        if segmented:
-            carry_f[0] = jnp.zeros((), jnp.int32)
-
-    v = x_ref[:, :]
-    if segmented:
-        f = f_ref[:, :].astype(jnp.int32)
-        sv, sf, (bv, bf) = _block_scan(v, f, op, ident, True)
-        cv, cf = carry_v[0], carry_f[0]       # carry math in 32-bit
-        out, _ = _pair_combine(op, sv, sf, cv.astype(dt), cf)
-        o_ref[:, :] = out
-        bv32 = bv if bv.dtype == cdt else bv.astype(cdt)
-        carry_v[0] = jnp.where(bf > 0, bv32, op(cv, bv32))
-        carry_f[0] = bf | cf
-    else:
-        sv, _, (bv, _) = _block_scan(v, None, op, ident, False)
-        cv = carry_v[0]
-        o_ref[:, :] = op(sv, cv)
-        carry_v[0] = op(bv, cv)
-
-
-def _minmax_scan_kernel(x_ref, f_ref, a_ref, omax_ref, omin_ref,
-                        carry_max, carry_min, carry_f):
-    """Segmented inclusive MAX and MIN over ACTIVE elements of one block
-    in a single pass (shared loads, shared flag algebra — ~30% less HBM
-    traffic and half the dispatches vs two separately-masked scans)."""
-    imax = jnp.iinfo(jnp.int32).max
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        carry_max[0] = jnp.int32(-imax - 1)
-        carry_min[0] = jnp.int32(imax)
-        carry_f[0] = jnp.zeros((), jnp.int32)
-
-    v = x_ref[:, :]
-    f = f_ref[:, :].astype(jnp.int32)
-    act = a_ref[:, :] != 0
-    zero = jnp.zeros((), jnp.int32)
-    vmax = jnp.where(act, v, jnp.int32(-imax - 1))
-    vmin = jnp.where(act, v, jnp.int32(imax))
-    rows = v.shape[0]
-    k = 1
-    while k < LANES:
-        smax = _shift_lanes(vmax, k, jnp.int32(-imax - 1))
-        smin = _shift_lanes(vmin, k, jnp.int32(imax))
-        sf = _shift_lanes(f, k, zero)
-        vmax = jnp.where(f > 0, vmax, jnp.maximum(smax, vmax))
-        vmin = jnp.where(f > 0, vmin, jnp.minimum(smin, vmin))
-        f = f | sf
-        k *= 2
-    rmax = vmax[:, LANES - 1:LANES]
-    rmin = vmin[:, LANES - 1:LANES]
-    rf = f[:, LANES - 1:LANES]
-    pmax = _shift_rows(rmax, 1, jnp.int32(-imax - 1))
-    pmin = _shift_rows(rmin, 1, jnp.int32(imax))
-    pf = _shift_rows(rf, 1, zero)
-    k = 1
-    while k < rows:
-        smax = _shift_rows(pmax, k, jnp.int32(-imax - 1))
-        smin = _shift_rows(pmin, k, jnp.int32(imax))
-        sf = _shift_rows(pf, k, zero)
-        pmax = jnp.where(pf > 0, pmax, jnp.maximum(smax, pmax))
-        pmin = jnp.where(pf > 0, pmin, jnp.minimum(smin, pmin))
-        pf = pf | sf
-        k *= 2
-    out_max = jnp.where(f > 0, vmax, jnp.maximum(pmax, vmax))
-    out_min = jnp.where(f > 0, vmin, jnp.minimum(pmin, vmin))
-    out_f = f | pf
-    # apply the cross-block carry
-    cmax, cmin, cf = carry_max[0], carry_min[0], carry_f[0]
-    omax_ref[:, :] = jnp.where(out_f > 0, out_max,
-                               jnp.maximum(cmax, out_max))
-    omin_ref[:, :] = jnp.where(out_f > 0, out_min,
-                               jnp.minimum(cmin, out_min))
-    bmax = jnp.where(rf[-1:] > 0, rmax[-1:],
-                     jnp.maximum(pmax[-1:], rmax[-1:]))[0, 0]
-    bmin = jnp.where(rf[-1:] > 0, rmin[-1:],
-                     jnp.minimum(pmin[-1:], rmin[-1:]))[0, 0]
-    bf = (rf[-1:] | pf[-1:])[0, 0]
-    carry_max[0] = jnp.where(bf > 0, bmax, jnp.maximum(cmax, bmax))
-    carry_min[0] = jnp.where(bf > 0, bmin, jnp.minimum(cmin, bmin))
-    carry_f[0] = bf | cf
-
-
-@jax.jit
-def segmented_minmax_1d(x: jax.Array, flags: jax.Array, active: jax.Array):
-    """(inclusive segmented MAX, inclusive segmented MIN) over active
-    elements of an int32 array in one fused pass."""
-    n = x.shape[0]
-    np_, brows, grid = _pad_rows(n)
-    xp = jnp.pad(x, (0, np_ - n)) if np_ != n else x
-    fp = flags.astype(jnp.int8).at[0].set(1)
-    ap = active.astype(jnp.int8)
-    if np_ != n:
-        fp = jnp.pad(fp, (0, np_ - n), constant_values=1)
-        ap = jnp.pad(ap, (0, np_ - n))
-    x2 = xp.reshape(-1, LANES)
-    f2 = fp.reshape(-1, LANES)
-    a2 = ap.reshape(-1, LANES)
-    spec = pl.BlockSpec((brows, LANES), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    smax, smin = pl.pallas_call(
-        _minmax_scan_kernel,
-        grid=(grid,),
-        in_specs=[spec, spec, spec],
-        out_specs=[spec, spec],
-        out_shape=[jax.ShapeDtypeStruct(x2.shape, jnp.int32),
-                   jax.ShapeDtypeStruct(x2.shape, jnp.int32)],
-        scratch_shapes=[pltpu.SMEM((1,), jnp.int32),
-                        pltpu.SMEM((1,), jnp.int32),
-                        pltpu.SMEM((1,), jnp.int32)],
-        interpret=_interp(),
-    )(x2, f2, a2)
-    return smax.reshape(-1)[:n], smin.reshape(-1)[:n]
-
-
 def segmented_minmax(x: jax.Array, flags: jax.Array, active: jax.Array):
-    """Fused per-segment (MAX, MIN) inclusive scans over active elements;
-    Pallas on TPU, two masked segmented scans elsewhere."""
+    """Per-segment (MAX, MIN) inclusive scans over active int32 elements."""
     x = jnp.asarray(x, jnp.int32)
-    if jax.default_backend() == "tpu" and x.shape[0] >= LANES:
-        return segmented_minmax_1d(x, flags, active)
     imax = jnp.iinfo(jnp.int32).max
     return (segmented_scan(jnp.where(active, x, -imax - 1), flags, "max"),
             segmented_scan(jnp.where(active, x, imax), flags, "min"))
 
 
-def _pad_rows(n):
-    rows = pl.cdiv(n, LANES)
-    brows = min(_ROWS, rows)
-    grid = pl.cdiv(rows, brows)
-    return grid * brows * LANES, brows, grid
-
-
-@partial(jax.jit, static_argnames=("op",))
-def scan_1d(x: jax.Array, op: str = "add") -> jax.Array:
-    """Inclusive scan of a 1-D array (int32/float32), exact wrap-around."""
-    n = x.shape[0]
-    np_, brows, grid = _pad_rows(n)
-    ident = _ident(op, x.dtype)
-    xp = jnp.pad(x, (0, np_ - n), constant_values=ident) if np_ != n else x
-    x2 = xp.reshape(-1, LANES)
-    out = pl.pallas_call(
-        partial(_scan_kernel, op, False),
-        grid=(grid,),
-        in_specs=[pl.BlockSpec((brows, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((brows, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(x2.shape, x.dtype),
-        scratch_shapes=[pltpu.SMEM((1,), x.dtype)],
-        interpret=_interp(),
-    )(x2)
-    return out.reshape(-1)[:n]
-
-
-@partial(jax.jit, static_argnames=("op",))
-def segmented_scan_1d(x: jax.Array, flags: jax.Array, op: str):
-    """Inclusive per-segment scan; ``flags`` marks segment starts (position
-    0 always implicitly starts a segment). int8 carriers run at ~4x the
-    int32 VPU rate (packed sublanes) with 4x less HBM traffic — use them
-    for boolean semantics (OR == max of 0/1)."""
-    n = x.shape[0]
-    np_, brows, grid = _pad_rows(n)
-    ident = _ident(op, x.dtype)
-    xp = jnp.pad(x, (0, np_ - n), constant_values=ident) if np_ != n else x
-    # position 0 implicitly starts a segment (nothing precedes it; required
-    # for the "first" op, where the identity is not neutral)
-    fp = flags.astype(jnp.int8).at[0].set(1)
-    if np_ != n:
-        fp = jnp.pad(fp, (0, np_ - n), constant_values=1)
-    x2 = xp.reshape(-1, LANES)
-    f2 = fp.reshape(-1, LANES)
-    spec = pl.BlockSpec((brows, LANES), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    carry_dt = x.dtype if jnp.dtype(x.dtype).itemsize >= 4 else jnp.int32
-    res = pl.pallas_call(
-        partial(_scan_kernel, op, True),
-        grid=(grid,),
-        in_specs=[spec, spec],
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct(x2.shape, x.dtype),
-        scratch_shapes=[pltpu.SMEM((1,), carry_dt),
-                        pltpu.SMEM((1,), jnp.int32)],
-        interpret=_interp(),
-    )(x2, f2)
-    return res.reshape(-1)[:n]
-
-
 def cumsum(x: jax.Array) -> jax.Array:
-    """Drop-in inclusive cumsum; Pallas on TPU, jnp elsewhere."""
-    x = jnp.asarray(x)
-    if jax.default_backend() == "tpu" and x.ndim == 1 and \
-            x.dtype in (jnp.int32, jnp.float32, jnp.int8) and x.shape[0] >= LANES:
-        return scan_1d(x, "add")
-    return jnp.cumsum(x)
+    """Inclusive cumsum (int32 wraps around exactly)."""
+    return jnp.cumsum(jnp.asarray(x))
 
 
 def segmented_scan(x: jax.Array, flags: jax.Array, op: str) -> jax.Array:
-    """Segmented inclusive scan; Pallas on TPU, associative_scan elsewhere."""
+    """Segmented inclusive scan; ``flags`` marks segment starts (position 0
+    always starts a segment). ``op``: add | min | max | first."""
     x = jnp.asarray(x)
     flags = jnp.asarray(flags)
-    if jax.default_backend() == "tpu" and x.ndim == 1 and \
-            x.dtype in (jnp.int32, jnp.float32, jnp.int8) and x.shape[0] >= LANES:
-        return segmented_scan_1d(x, flags, op)
     opf = _op_fn(op)
     flags = flags.at[0].set(True)
 

@@ -1,19 +1,12 @@
-"""Segment engine: gather-free expansion, permutation, and combines.
+"""Segment engine: expansion, permutation, and combines over the edge axis.
 
-WHY (measured on TPU v5e through this harness, 2M-edge arrays):
-  elementwise 0.05 ms | cumsum 0.4 ms | lax.sort 3.7 ms | scatter@V 0.3 ms
-  arbitrary gather/scatter over the edge axis: ~15-19 ms  (~7.5 ns/elem!)
-
-XLA lowers arbitrary gathers AND scatters to element-at-a-time loops on TPU,
-so the classic GPU formulation (gather vertex values per edge, scatter-combine
-per destination — what the reference's advance does with atomics) is ~400x
-off roofline. Every primitive here avoids arbitrary gathers on the edge axis:
+The engine keeps every edge-axis step a bulk primitive (cumsum, sort,
+associative scan); arbitrary indexing touches only V-sized arrays:
 
 * expand_vertex_to_edges — broadcast per-vertex values to their (sorted)
-  edge slots WITHOUT a gather: bitcast values to int32, take vertex-axis
-  diffs, scatter-add the diffs at the V segment-start offsets (a V-sized
-  scatter, cheap), int32-cumsum over the edge axis (wrap-around makes the
-  telescoping EXACT bit-for-bit), bitcast back.
+  edge slots: bitcast values to int32, take vertex-axis diffs, scatter-add
+  the diffs at the V segment-start offsets, int32-cumsum over the edge axis
+  (wrap-around makes the telescoping EXACT bit-for-bit), bitcast back.
 
 * apply_permutation — move edge arrays between CSR order and CSC order via
   one `lax.sort` keyed by the static rank permutation (multiple payloads
@@ -23,8 +16,9 @@ off roofline. Every primitive here avoids arbitrary gathers on the edge axis:
   the segment offsets: SUM/OR/AND via cumsum + boundary arithmetic (int32
   exact), MIN/MAX via a segmented associative scan with static reset flags.
 
-The only remaining arbitrary-index ops touch V-sized arrays (offset scatter,
-boundary gather), which cost ~V * 7.5 ns — negligible next to the edge axis.
+On a GPU the permutation and the expansion are each one gather
+(``x[csc_edge_ids]``, ``x[src]``); replacing the sort and the telescoping
+cumsum with them is tracked as ROADMAP debt D1.
 """
 
 from __future__ import annotations
@@ -106,7 +100,7 @@ def combine_by_offsets(edge_vals: jax.Array, offsets: jax.Array,
 
     # Segments tile the edge axis contiguously, so the low boundary prefix
     # equals the previous segment's high boundary: lo = shift(hi, 1). One
-    # V-sized gather instead of two (V-gathers cost ~7.5 ns/elem on TPU).
+    # V-sized gather instead of two.
     def _boundary_diff(s, zero):
         hi = s[jnp.maximum(hi_off - 1, 0)]
         lo = jnp.concatenate([jnp.full((1,), zero, s.dtype), hi[:-1]])
@@ -136,7 +130,7 @@ def combine_by_offsets(edge_vals: jax.Array, offsets: jax.Array,
         out = _boundary_diff(_cumsum(edge_vals.astype(jnp.float32)), 0.0)
         return jnp.where(nonempty, out, 0.0).astype(edge_vals.dtype)
 
-    # MIN / MAX: segmented scan with reset flags (Pallas kernel on TPU)
+    # MIN / MAX: segmented scan with reset flags
     assert seg_flags is not None, "MIN/MAX combine needs segment-start flags"
     ident = combine_identity(combine, edge_vals.dtype)
     opname = "min" if combine == Combine.MIN else "max"
@@ -152,245 +146,12 @@ def combine_by_offsets(edge_vals: jax.Array, offsets: jax.Array,
 
 
 # --------------------------------------------------------------------- #
-# Routed offsets engine: Benes-planned V<->E movement
-#
-# The V-sized arbitrary scatter in expand_vertex_to_edges and the V-sized
-# boundary gather in combine_by_offsets each cost ~7.5 ns/element on TPU
-# (element-serialized lowering) — ~2 ms at V=256K, dominating a superstep.
-# Both touch the SAME static index set: the segment offsets. One Benes plan
-# π (slot w <-> edge position offsets[w]) replaces both:
-#   scatter:  route the [L] carrier holding per-vertex diffs at slots w
-#             forward through π, then cumsum            (expand)
-#   gather:   route the exclusive prefix array backward through π^-1 and
-#             read slots 0..n_seg                       (combine boundaries)
-# Duplicate offsets (empty segments) are folded on the (cheap) vertex axis:
-# diffs are pre-summed per run before routing, and gathered boundaries are
-# forward-filled over runs afterwards.
-
-from dataclasses import dataclass
-from functools import partial as _partial
-
-import numpy as np
-
-from essentials_tpu.ops.scan_kernels import segmented_scan as _segscan2
-
-
-@_partial(jax.tree_util.register_dataclass,
-          data_fields=["plan", "inv_plan", "run_start", "rev_end",
-                       "seg_len"],
-          meta_fields=["n_seg", "n_edges_padded"])
-@dataclass(frozen=True)
-class OffsetsRoute:
-    """Benes route between vertex slots and their static segment offsets."""
-    plan: object            # PermutePlan: out[offsets[w]] = in[w]
-    inv_plan: object        # its inverse: out[w] = in[offsets[w]]
-    run_start: jax.Array    # bool[n_seg+1]: first of a run of equal offsets
-    rev_end: jax.Array      # bool[n_seg+1]: run-END flags, REVERSED axis
-    seg_len: jax.Array      # int32[n_seg]: static segment lengths
-    n_seg: int
-    n_edges_padded: int
-
-
-def build_offsets_route(offsets: np.ndarray, n_edges_padded: int
-                        ) -> OffsetsRoute:
-    """Host-side: build the offsets permutation plan (+inverse)."""
-    from essentials_tpu.ops.permute import (route_permutation, invert_plan,
-                                            plan_length)
-    off = np.asarray(offsets, np.int64)
-    n_seg = off.shape[0] - 1
-    L = plan_length(n_edges_padded + 1)
-    n = n_seg + 1
-    run_start = np.empty(n, bool)
-    run_start[0] = True
-    run_start[1:] = off[1:] != off[:-1]
-    run_end = np.empty(n, bool)
-    run_end[:-1] = run_start[1:]
-    run_end[-1] = True
-    # completion: first-of-run slots w map to position off[w]; all other
-    # slots fill the remaining positions in ascending order.
-    gather_idx = np.full(L, -1, np.int64)      # gather_idx[pos] = slot
-    firsts = np.nonzero(run_start)[0]
-    gather_idx[off[firsts]] = firsts
-    free_pos = np.nonzero(gather_idx < 0)[0]
-    used_slot = np.zeros(L, bool)
-    used_slot[firsts] = True
-    free_slot = np.nonzero(~used_slot)[0]
-    gather_idx[free_pos] = free_slot
-    plan = route_permutation(gather_idx)
-    # leaves stay host numpy; the graph builder ships everything with one
-    # batched jax.device_put
-    return OffsetsRoute(plan=plan, inv_plan=invert_plan(plan),
-                        run_start=run_start,
-                        rev_end=run_end[::-1].copy(),
-                        seg_len=np.diff(off).astype(np.int32),
-                        n_seg=n_seg, n_edges_padded=n_edges_padded)
-
-
-def _run_totals(d: jax.Array, route: OffsetsRoute) -> jax.Array:
-    """Sum ``d`` within runs of equal offsets; the total lands on each
-    run's FIRST slot, 0 elsewhere. Vertex-axis only, int32-exact."""
-    n = d.shape[0]
-    rs = route.run_start[:n]
-    t = _segscan2(d, rs, "add")                    # run total at run ends
-    # back-fill run-end values to the whole run: reverse + forward-fill
-    rev_flags = route.rev_end[route.run_start.shape[0] - n:]
-    ff = _segscan2(t[::-1], rev_flags, "first")[::-1]
-    return jnp.where(rs, ff, jnp.zeros((), d.dtype))
-
-
-def expand_vertex_to_edges_routed(vertex_vals: jax.Array,
-                                  route: OffsetsRoute) -> jax.Array:
-    """Routed expand: per-vertex values broadcast to their edge segments
-    with no V-sized scatter. Exact for all dtypes (int32 telescoping)."""
-    return expand_multi_routed((vertex_vals,), route)[0]
-
-
-def expand_multi_routed(vertex_vals_list, route: OffsetsRoute):
-    """Expand several vertex arrays through ONE shared routing.
-
-    The telescoping cumsum is fused into the routing kernels (post_scan) —
-    always int32 wrap-around on bit-diffs, exact for every dtype."""
-    if not vertex_vals_list:
-        return ()
-    from essentials_tpu.ops.permute import apply_plan_multi
-    dds, dts = [], []
-    for v in vertex_vals_list:
-        iv = _to_i32(v)
-        d = jnp.diff(iv, prepend=jnp.zeros(1, jnp.int32))
-        dds.append(_run_totals(d, route))
-        dts.append(v.dtype)
-    routed = apply_plan_multi(tuple(dds), route.plan,
-                              n_valid=route.n_edges_padded, post_scan=True)
-    return tuple(_from_i32(r, dt) for r, dt in zip(routed, dts))
-
-
-def expand_multi_then_route(vertex_vals_list, route: OffsetsRoute,
-                            fwd_plan, n_valid: int):
-    """Fused expand + follow-up permutation: route_b(cumsum(route_a(d))).
-
-    Equivalent to expand_multi_routed(...) followed by
-    apply_plan_multi(..., fwd_plan) but the boundary kernels are chained
-    (one fewer HBM round trip per payload). Caller must check
-    cube_router.chainable(route.plan, fwd_plan)."""
-    from essentials_tpu.ops.cube_router import apply_cube_chain
-    dds, dts = [], []
-    for v in vertex_vals_list:
-        iv = _to_i32(v)
-        d = jnp.diff(iv, prepend=jnp.zeros(1, jnp.int32))
-        dds.append(_run_totals(d, route))
-        dts.append(v.dtype)
-    routed = apply_cube_chain(tuple(dds), route.plan, fwd_plan,
-                              n_valid=n_valid)
-    return tuple(_from_i32(r, dt) for r, dt in zip(routed, dts))
-
-
-def combine_by_offsets_routed(edge_vals: jax.Array, route: OffsetsRoute,
-                              combine: Combine,
-                              seg_flags: jax.Array | None = None
-                              ) -> jax.Array:
-    """Routed segmented reduction: no V-sized boundary gather."""
-    from essentials_tpu.ops.permute import apply_plan
-    from essentials_tpu.ops.scan_kernels import cumsum as _pc
-    n_seg = route.n_seg
-    rs = route.run_start
-
-    def boundaries(prefix_ex):
-        """prefix_ex[k] = reduction over edges [0, k); returns
-        b[w] = prefix_ex[offsets[w]] for every w (run forward-fill)."""
-        g = apply_plan(prefix_ex, route.inv_plan, n_valid=n_seg + 1)
-        return _segscan2(g, rs, "first")
-
-    if combine == Combine.SUM and \
-            jnp.issubdtype(edge_vals.dtype, jnp.floating) and \
-            seg_flags is not None:
-        # float SUM: SEGMENTED scan, not global-prefix difference — a global
-        # f32 cumsum at 10M+ edges accumulates O(n*eps*prefix) error that
-        # the per-segment subtraction cannot cancel (measured: abs err ~10
-        # on rmat18 SpMV). Per-segment scans keep error local. Without
-        # flags the (less accurate) prefix-difference path below is used.
-        sv = _segscan2(edge_vals.astype(jnp.float32), seg_flags, "add")
-        pad = jnp.zeros(1, sv.dtype)
-        ff = boundaries(jnp.concatenate([pad, sv]))    # ff[w+1]=sum(seg w)
-        out = jnp.where(route.seg_len > 0, ff[1:], 0.0)
-        return out.astype(edge_vals.dtype)
-
-    if combine in (Combine.OR, Combine.AND, Combine.SUM):
-        iv = edge_vals
-        if jnp.issubdtype(iv.dtype, jnp.floating):
-            iv = iv.astype(jnp.float32)   # fused f32 prefix (flagless SUM)
-        elif iv.dtype != jnp.int32:
-            iv = iv.astype(jnp.int32)     # int32 wrap-around fused scan
-        # exclusive prefix fused into the backward route's first kernel
-        g = apply_plan(iv, route.inv_plan, n_valid=n_seg + 1,
-                       pre_scan_exclusive=True)
-        ff = _segscan2(g, rs, "first")
-        out = ff[1:] - ff[:-1]                         # empty segments -> 0
-        if combine == Combine.OR:
-            return out > 0
-        if combine == Combine.AND:
-            return (out == route.seg_len) | (route.seg_len == 0)
-        return out.astype(edge_vals.dtype)
-
-    # MIN / MAX via segmented scan + routed end-of-segment pick
-    assert seg_flags is not None, "MIN/MAX combine needs segment-start flags"
-    ident = combine_identity(combine, edge_vals.dtype)
-    opname = "min" if combine == Combine.MIN else "max"
-    dt = edge_vals.dtype
-    carrier = edge_vals
-    if dt not in (jnp.int32, jnp.float32):
-        carrier = carrier.astype(
-            jnp.float32 if jnp.issubdtype(dt, jnp.floating) else jnp.int32)
-    sv = _segscan2(carrier, seg_flags, opname)
-    pad = jnp.full(1, combine_identity(combine, sv.dtype), sv.dtype)
-    sv_sh = jnp.concatenate([pad, sv])                 # sv_sh[k] = sv[k-1]
-    ff = boundaries(sv_sh)
-    out = ff[1:].astype(dt)
-    return jnp.where(route.seg_len > 0, out, ident)
-
-
-def combine_minmax_multi(edge_vals_list, active: jax.Array,
-                         route: OffsetsRoute, seg_flags: jax.Array):
-    """Per-segment (MAX, MIN) over ACTIVE edges of several int32 edge
-    arrays, with ONE shared backward boundary route.
-
-    Each payload costs two segmented scans; the 2m scanned prefix arrays
-    then ride a single multi-payload inverse-offsets route (the per-route
-    index traffic — the fixed cost that dominates small-payload combines —
-    is paid once instead of 2m times). Returns [(max [n_seg], min [n_seg]),
-    ...] with -2^31 / 2^31-1 identities at empty/inactive segments.
-    Powers multi-wave coloring (m independent sets per sweep)."""
-    from essentials_tpu.ops.permute import apply_plan_multi
-    from essentials_tpu.ops.scan_kernels import segmented_minmax
-    n_seg = route.n_seg
-    rs = route.run_start
-    imax = jnp.iinfo(jnp.int32).max
-    carriers = []
-    for v in edge_vals_list:
-        smax, smin = segmented_minmax(v, seg_flags, active)
-        carriers.append(jnp.concatenate(
-            [jnp.full(1, -imax - 1, jnp.int32), smax]))
-        carriers.append(jnp.concatenate(
-            [jnp.full(1, imax, jnp.int32), smin]))
-    routed = apply_plan_multi(tuple(carriers), route.inv_plan,
-                              n_valid=n_seg + 1)
-    outs = []
-    for i in range(len(edge_vals_list)):
-        mx = _segscan(routed[2 * i], rs, "first")[1:]
-        mn = _segscan(routed[2 * i + 1], rs, "first")[1:]
-        mx = jnp.where(route.seg_len > 0, mx, -imax - 1)
-        mn = jnp.where(route.seg_len > 0, mn, imax)
-        outs.append((mx, mn))
-    return outs
-
-
-# --------------------------------------------------------------------- #
 # generic keyed fallback (unsorted keys, e.g. MST component ids)
 
 def segment_combine(data: jax.Array, segment_ids: jax.Array, num_segments: int,
                     combine: Combine, *, indices_are_sorted: bool = True
                     ) -> jax.Array:
-    """Keyed segmented reduction via jax.ops (scatter lowering — SLOW on the
-    TPU edge axis; use the offset/schedule paths above for hot loops)."""
+    """Keyed segmented reduction via jax.ops (unsorted keys allowed)."""
     kw = dict(num_segments=num_segments, indices_are_sorted=indices_are_sorted)
     if combine == Combine.SUM:
         return jax.ops.segment_sum(data, segment_ids, **kw)

@@ -3,15 +3,14 @@
 The dense segment engine (ops/advance.py) does O(E) work per superstep —
 ideal for expansion-heavy phases, catastrophic for high-diameter graphs
 (road networks: thousands of supersteps with frontiers of a few thousand
-vertices). This operator is the TPU analogue of the reference's
+vertices). This operator is the analogue of the reference's
 frontier-proportional work model (vector frontiers,
 framework/frontier/vector_frontier.hxx): it compacts the boolmap frontier
 into a CAPPED index list (`jnp.nonzero(..., size=K)` — static shapes!) and
 relaxes the K*dmax candidate edges with XLA gathers/scatters.
 
-Arbitrary gathers serialize on TPU (~7.5 ns/element), so this only wins
-when K*dmax is small — exactly the regime where the dense engine wastes
-the whole edge axis. Algorithms switch per-superstep with `lax.cond` on
+It wins when K*dmax is small — exactly the regime where the dense engine
+wastes the whole edge axis. Algorithms switch per-superstep with `lax.cond` on
 the frontier population (see bfs.step_adaptive / sssp.step_adaptive);
 both branches live in the same compiled while_loop, the pick is on-device.
 
@@ -34,24 +33,23 @@ from essentials_tpu.graph.graph import Graph
 DMAX_CAP = 64
 DEFAULT_K = 4096
 # candidate-matrix budget: XLA scatters/gathers visit every [K, dcap] slot
-# (~15 ns each incl. the paired gather) whether masked or not, so the
-# sparse step costs ~BUDGET * 15ns + ~0.4 ms fixed regardless of how full
-# the frontier is; K is sized so that stays well under a dense superstep
+# whether masked or not, so the sparse step costs O(BUDGET) plus a fixed
+# floor regardless of how full the frontier is; K is sized so that stays
+# well under a dense superstep
 _BUDGET = 1 << 15
 # ... and the graph must be big enough that a dense superstep costs more
-# than the sparse path's fixed floor; measured crossover on v5e is a few
-# million edges
+# than the sparse path's fixed floor (a few million edges; the crossover
+# has not been measured on a GPU — ROADMAP speed item 5)
 _MIN_EDGES = 1 << 21
 
 
 def sparse_enabled(g: Graph, k: int | None = None) -> bool:
     """Static (trace-time) gate for compiling the sparse branch.
 
-    Low-degree graphs only: on skewed graphs a controlled A/B (rmat18
-    BFS protocol) measured the adaptive machinery at -14% — the candidate
-    budget rarely fits a tail frontier there, so the per-round checks and
-    carried index state never pay for themselves. kcore's empty-round
-    skip is separate and stays on for every graph."""
+    Low-degree graphs only: on skewed graphs the candidate budget rarely
+    fits a tail frontier, so the per-round checks and carried index state
+    do not pay for themselves. kcore's empty-round skip is separate and
+    stays on for every graph."""
     return 0 < g.max_degree <= DMAX_CAP and g.n_edges > _MIN_EDGES
 
 
@@ -73,9 +71,8 @@ def frontier_idx_ok(g: Graph, idx: jax.Array, count) -> jax.Array:
 
 
 def compact_frontier(frontier: jax.Array, k: int, fill: int) -> jax.Array:
-    """First <=k set indices (ascending), ``fill`` beyond. Sort-based:
-    jnp.nonzero(size=k)'s lowering pays a V-sized serialized scatter
-    (~2.3 ms at V=262K on v5e); one lax.sort is ~0.23 ms."""
+    """First <=k set indices (ascending), ``fill`` beyond. Sort-based (one
+    lax.sort over the vertex axis)."""
     vp = frontier.shape[0]
     key = jnp.where(frontier, jnp.arange(vp, dtype=jnp.int32),
                     jnp.int32(2**30))
@@ -139,17 +136,15 @@ def next_frontier_idx(nb: jax.Array, keep: jax.Array, k: int, fill: int):
 # static slots via scatter+cumsum over the budget axis) so the only gate is
 # sum(deg(frontier)) <= budget, checked on device per superstep.
 #
-# Measured (TPU v5e, benchmarks/profile_primitives.py): XLA gather/scatter/
-# sort at <= 32K elements cost tens of microseconds; the serialization
-# cliff (~7.5 ns/elem) starts at ~64K. Budget 32768 keeps every op on the
-# cheap side; a spray superstep is ~0.1-0.3 ms vs ~1 ms+ for a dense O(E)
-# superstep at rmat18.
+# Budget 32768 keeps every gather/scatter/sort of a spray superstep small
+# next to a dense O(E) superstep (the budgets have not been re-derived on a
+# GPU — ROADMAP speed item 5).
 #
-# Reference parity: this is the TPU replacement for thread-mapped advance
+# Reference parity: this is the replacement for thread-mapped advance
 # over vector frontiers (advance/thread_mapped.hxx) — work proportional to
 # the frontier's out-degree, not to E and not to K*max_degree.
 
-SPRAY_BUDGET = 1 << 15        # candidate edge slots (the 64K cliff is real)
+SPRAY_BUDGET = 1 << 15        # candidate edge slots
 SPRAY_K = 1 << 14             # index-list capacity
 # tiny tier: near-empty frontiers (head/tail BFS levels) pay ~5x less for
 # the fixed gather/sort costs that scale with the budget, not the frontier
@@ -195,8 +190,7 @@ def spray_candidates(g: Graph, idx: jax.Array, offs: jax.Array,
     id is e = j + (offs[i] - pfx[i]) — a per-segment constant. Expanding a
     per-segment constant needs no gather: scatter its K-axis DIFFS at the
     segment-start slots and cumsum over the budget axis (the telescoping
-    trick of ops/segment.py at sparse scale — B-from-K-table gathers
-    measured ~10x the cost of this scatter+cumsum on v5e)."""
+    trick of ops/segment.py at sparse scale)."""
     pfx = jnp.cumsum(deg) - deg                        # exclusive prefix
     total = pfx[-1] + deg[-1]
     j = jnp.arange(budget, dtype=jnp.int32)

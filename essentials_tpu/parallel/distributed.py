@@ -1,15 +1,16 @@
 """Distributed supersteps: shard_map + XLA collectives over the mesh.
 
-The per-superstep recipe (BASELINE.json north star):
-  1. exchange the sharded frontier/value vector over the mesh axis (ICI):
+The per-superstep recipe:
+  1. exchange the sharded frontier/value vector over the mesh axis:
      either `all_gather` (full [Vtot] replica) or — when the partitioner
      chose boundary mode — gather each owner's STATIC requested-vertex sets
      and `all_to_all` exactly those values ([P, Smax] per device; comm
      volume P*Smax instead of Vtot — DistGraph.comm_values_per_step);
-  2. local gather-free expansion of the exchanged vector along the device's
+  2. local expansion of the exchanged vector along the device's
      source-sorted edge block (telescoping cumsum — same engine as
-     single-chip, ops/segment.py);
-  3. per-device Beneš route into local-dst order + offset-based combine;
+     single-device, ops/segment.py);
+  3. one gather by the static index into local-dst order + offset-based
+     combine;
   4. psum scalar for convergence.
 Everything lives inside one jitted shard_map while_loop: no host round-trips.
 
@@ -27,24 +28,18 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from essentials_tpu.ops.configs import Combine
 from essentials_tpu.ops.segment import expand_vertex_to_edges, combine_by_offsets
-from essentials_tpu.ops.permute import apply_plan
 from essentials_tpu.parallel.partition import DistGraph
 
 AXIS = "v"
 
 
-def _local(tree):
-    return jax.tree_util.tree_map(lambda a: a[0], tree)
-
-
-def _spread_local(x_full, soff, route, doff, es, weight=None, use_pallas=False):
+def _spread_local(x_full, soff, route, es):
     """Common local step: expand exchanged values along the local
-    source-sorted edge axis, optionally scale by edge weight, route to
-    local dst order. Returns dst-ordered per-edge values [Es]."""
+    source-sorted edge axis and gather them into local dst order
+    (``route`` is the static [Es] gather index). Returns dst-ordered
+    per-edge values [Es]."""
     fe = expand_vertex_to_edges(x_full, soff, es)
-    if weight is not None:
-        fe = fe * weight
-    return apply_plan(fe, route, use_pallas=use_pallas)
+    return fe[route]
 
 
 def _soff(dg: DistGraph):
@@ -62,14 +57,14 @@ def _send(dg: DistGraph):
 
 def _overlap_sweep(dg: DistGraph, vals, send_idx_l, offsets_l,
                    peer_route_l, peer_doff_l, peer_elo_l, wpad_l,
-                   combine: Combine, ident, msg=None, use_pallas=False):
+                   combine: Combine, ident, msg=None):
     """Comm/compute-overlapped superstep (SURVEY §5): ring-exchange the
     per-peer chunks and expand/route/combine each chunk AS IT ARRIVES,
     accumulating partial per-destination combines associatively.
 
     The P-1 ppermute steps are software-pipelined (the next chunk's
     exchange is issued before the current chunk's local work), so XLA's
-    async collectives can hide ICI latency behind the local expansion.
+    async collectives can hide link latency behind the local expansion.
     Exact by construction: per-peer partial combines over disjoint edge
     sets, folded with the same associative `combine`.
 
@@ -102,8 +97,7 @@ def _overlap_sweep(dg: DistGraph, vals, send_idx_l, offsets_l,
         if msg is not None:
             wq = jax.lax.dynamic_slice(wpad_l, (lo,), (eq,))
             fe = msg(fe, wq)
-        route_q = jax.tree_util.tree_map(lambda a: a[q], peer_route_l)
-        fed = apply_plan(fe, route_q, use_pallas=use_pallas)
+        fed = fe[peer_route_l[q]]
         doff_q = peer_doff_l[q]
         flags = _dst_seg_flags(doff_q, eq) \
             if combine in (Combine.MIN, Combine.MAX) else None
@@ -167,7 +161,7 @@ def _peer_args(dg: DistGraph, overlap: bool):
         raise ValueError("overlap mode needs partition_graph(..., "
                          "overlap=True)")
     return ((dg.peer_route, dg.peer_dst_offsets, dg.peer_edge_starts),
-            (P(AXIS), P(AXIS, None, None), P(AXIS, None)))
+            (P(AXIS, None, None), P(AXIS, None, None), P(AXIS, None)))
 
 
 def dist_bfs(dg: DistGraph, mesh: Mesh, source: int, *,
@@ -181,20 +175,19 @@ def dist_bfs(dg: DistGraph, mesh: Mesh, source: int, *,
     vs = dg.block_size
     es = dg.edges_per_device
     max_it = max_iterations or dg.n_vertices + 1
-    use_pallas = jax.default_backend() == "tpu"
     extra, extra_specs = _peer_args(dg, overlap)
 
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS),
+             in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS, None),
                        P(AXIS, None), P(AXIS, None, None), P(AXIS),
                        P(AXIS)) + extra_specs,
              out_specs=P(AXIS), check_vma=False)
     def run(soff, doff, route, vvalid, send, dist0, frontier0, *peer):
         soff, doff, vvalid = soff[0], doff[0], vvalid[0]
-        route_l = _local(route)
+        route_l = route[0]
         exchange = _exchanger(dg, send[0])
         if overlap:
-            pr_l = _local(peer[0])
+            pr_l = peer[0][0]
             pdoff_l, pelo_l = peer[1][0], peer[2][0]
             wdummy = jnp.zeros(1, jnp.int8)
 
@@ -210,11 +203,10 @@ def dist_bfs(dg: DistGraph, mesh: Mesh, source: int, *,
                 reached = _overlap_sweep(
                     dg, frontier.astype(jnp.int8), send[0], soff,
                     pr_l, pdoff_l, pelo_l, wdummy, Combine.OR,
-                    jnp.int8(0), use_pallas=use_pallas)
+                    jnp.int8(0))
             else:
                 f_src = exchange(frontier.astype(jnp.int8))
-                fe = _spread_local(f_src, soff, route_l, doff,
-                                   es, use_pallas=use_pallas)
+                fe = _spread_local(f_src, soff, route_l, es)
                 reached = combine_by_offsets(fe != 0, doff, Combine.OR)[:vs]
             newly = reached & (dist == unreached) & vvalid
             dist = jnp.where(newly, it + 1, dist)
@@ -225,7 +217,7 @@ def dist_bfs(dg: DistGraph, mesh: Mesh, source: int, *,
 
     dist0 = jnp.full(vtot, unreached, jnp.int32).at[source].set(0)
     frontier0 = jnp.zeros(vtot, jnp.bool_).at[source].set(True)
-    specs = (P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS, None),
+    specs = (P(AXIS, None), P(AXIS, None), P(AXIS, None), P(AXIS, None),
              P(AXIS, None, None), P(AXIS), P(AXIS)) + extra_specs
     args = _place(mesh, specs,
                   (_soff(dg), dg.dst_offsets, dg.route, dg.vertex_valid,
@@ -244,25 +236,24 @@ def dist_sssp(dg: DistGraph, mesh: Mesh, source: int, *,
     vs = dg.block_size
     es = dg.edges_per_device
     max_it = max_iterations or dg.n_vertices + 1
-    use_pallas = jax.default_backend() == "tpu"
     extra, extra_specs = _peer_args(dg, overlap)
 
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS),
-                       P(AXIS, None), P(AXIS, None, None),
+             in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS, None),
+                       P(AXIS, None), P(AXIS, None), P(AXIS, None, None),
                        P(AXIS)) + extra_specs,
              out_specs=P(AXIS), check_vma=False)
     def run(soff, doff, route, w, vvalid, send, dist0, *peer):
         soff, doff, vvalid = soff[0], doff[0], vvalid[0]
-        route_l = _local(route)
+        route_l = route[0]
         exchange = _exchanger(dg, send[0])
         if overlap:
-            pr_l = _local(peer[0])
+            pr_l = peer[0][0]
             pdoff_l, pelo_l = peer[1][0], peer[2][0]
             wpad = jnp.pad(w[0], (0, dg.peer_edges))
         else:
-            # static per-device data: route the weights to dst order once
-            we = apply_plan(w[0], route_l, use_pallas=use_pallas)
+            # static per-device data: weights to dst order once
+            we = w[0][route_l]
 
         def cond(carry):
             dist, improved, it = carry
@@ -277,12 +268,10 @@ def dist_sssp(dg: DistGraph, mesh: Mesh, source: int, *,
                     dg, dist, send[0], soff, pr_l, pdoff_l, pelo_l, wpad,
                     Combine.MIN, jnp.float32(jnp.inf),
                     msg=lambda de, wq: jnp.where(jnp.isfinite(de),
-                                                 de + wq, jnp.inf),
-                    use_pallas=use_pallas)
+                                                 de + wq, jnp.inf))
             else:
                 d_src = exchange(dist)
-                de = _spread_local(d_src, soff, route_l, doff, es,
-                                   use_pallas=use_pallas)
+                de = _spread_local(d_src, soff, route_l, es)
                 cand = combine_by_offsets(
                     jnp.where(jnp.isfinite(de), de + we, jnp.inf), doff,
                     Combine.MIN,
@@ -296,7 +285,7 @@ def dist_sssp(dg: DistGraph, mesh: Mesh, source: int, *,
         return dist
 
     dist0 = jnp.full(vtot, jnp.inf, jnp.float32).at[source].set(0.0)
-    specs = (P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS),
+    specs = (P(AXIS, None), P(AXIS, None), P(AXIS, None), P(AXIS, None),
              P(AXIS, None), P(AXIS, None, None), P(AXIS)) + extra_specs
     args = _place(mesh, specs,
                   (_soff(dg), dg.dst_offsets, dg.route, dg.weights,
@@ -321,20 +310,19 @@ def dist_pagerank(dg: DistGraph, mesh: Mesh, *, alpha: float = 0.85,
     vs = dg.block_size
     es = dg.edges_per_device
     nv = dg.n_vertices
-    use_pallas = jax.default_backend() == "tpu"
     extra, extra_specs = _peer_args(dg, overlap)
 
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS),
+             in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS, None),
                        P(AXIS, None), P(AXIS, None), P(AXIS, None, None),
                        P(AXIS)) + extra_specs,
              out_specs=P(AXIS), check_vma=False)
     def run(soff, doff, route, vvalid, odeg, send, p0, *peer):
         soff, doff, vvalid, odeg = soff[0], doff[0], vvalid[0], odeg[0]
-        route_l = _local(route)
+        route_l = route[0]
         exchange = _exchanger(dg, send[0])
         if overlap:
-            pr_l = _local(peer[0])
+            pr_l = peer[0][0]
             pdoff_l, pelo_l = peer[1][0], peer[2][0]
             wdummy = jnp.zeros(1, jnp.float32)
 
@@ -349,12 +337,10 @@ def dist_pagerank(dg: DistGraph, mesh: Mesh, *, alpha: float = 0.85,
             if overlap:
                 pulled = _overlap_sweep(
                     dg, contrib, send[0], soff, pr_l, pdoff_l, pelo_l,
-                    wdummy, Combine.SUM, jnp.float32(0),
-                    use_pallas=use_pallas)
+                    wdummy, Combine.SUM, jnp.float32(0))
             else:
                 c_src = exchange(contrib)
-                msg = _spread_local(c_src, soff, route_l, doff, es,
-                                    use_pallas=use_pallas)
+                msg = _spread_local(c_src, soff, route_l, es)
                 pulled = combine_by_offsets(msg, doff, Combine.SUM)[:vs]
             dangling_local = jnp.sum(jnp.where(vvalid & (odeg == 0), p, 0.0))
             dangling = jax.lax.psum(dangling_local, AXIS)
@@ -367,7 +353,7 @@ def dist_pagerank(dg: DistGraph, mesh: Mesh, *, alpha: float = 0.85,
         return p
 
     p0 = jnp.where(jnp.arange(vtot) < nv, 1.0 / nv, 0.0).astype(jnp.float32)
-    specs = (P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS, None),
+    specs = (P(AXIS, None), P(AXIS, None), P(AXIS, None), P(AXIS, None),
              P(AXIS, None), P(AXIS, None, None), P(AXIS)) + extra_specs
     args = _place(mesh, specs,
                   (_soff(dg), dg.dst_offsets, dg.route, dg.vertex_valid,

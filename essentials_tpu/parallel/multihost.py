@@ -2,8 +2,8 @@
 
 The reference has no multi-node story at all (SURVEY §2.4). Here: thin
 wrappers over jax.distributed so the same mesh/shard_map programs span
-hosts — collectives ride ICI within a slice and DCN across hosts, inserted
-by XLA from the same `shard_map` code used single-host.
+hosts — collectives are inserted by XLA from the same `shard_map` code
+used single-host.
 """
 
 from __future__ import annotations
@@ -16,9 +16,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize the multi-process runtime (no-op if single-process).
 
-    On Cloud TPU pods arguments are auto-detected from the metadata server;
-    elsewhere pass coordinator_address="host:port", num_processes, and
-    process_id explicitly.
+    Pass coordinator_address="host:port", num_processes and process_id
+    explicitly (nothing auto-detects a cluster on a plain GPU host).
     """
     if num_processes is not None and num_processes <= 1:
         return

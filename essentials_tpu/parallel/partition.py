@@ -3,21 +3,22 @@
 The reference's only multi-device mechanism is VMM memory striping with no
 compute distribution (/root/reference/include/gunrock/virtual_memory.hxx;
 every operator rejects multi-context, advance.hxx:125-128). Here: a 1-D
-destination-owner edge partition designed for the TPU mesh —
+destination-owner edge partition over a device mesh —
 
 * vertices are split into P contiguous blocks of ``block_size`` (the global
   padded vertex count becomes Vtot = P * block_size);
 * each device owns every edge whose *destination* falls in its block, so the
   per-destination combine is purely local;
 * per-superstep communication is ONE `all_gather` of the [Vs]-sharded
-  frontier/value arrays over the mesh axis (rides ICI);
-* the local compute uses the same gather-free engine as single-chip
+  frontier/value arrays over the mesh axis;
+* the local compute uses the same engine as single-device
   (ops/segment.py): each device stores its edges in global-src-sorted order
-  (so the gathered vector expands via the telescoping cumsum), a per-device
-  Beneš routing plan into local-dst-sorted order, and local combine offsets.
+  (so the gathered vector expands via the telescoping cumsum), a static
+  int32 gather index into local-dst-sorted order, and local combine
+  offsets.
 
 Edge blocks are padded to the max per-device edge count so all stacked
-arrays (and routing plans) are rectangular.
+arrays (and gather indices) are rectangular.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import jax.numpy as jnp
 
 from essentials_tpu import dtypes
 from essentials_tpu.formats.csr import Csr
-from essentials_tpu.formats.coo import Coo
+from essentials_tpu.formats.coo import Coo, pair_order
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -67,7 +68,7 @@ class DistGraph:
     src_offsets: jax.Array     # [P, Vtot+1] int32: global-src-sorted offsets
     dst_offsets: jax.Array     # [P, Vs+2] int32: local-dst offsets (+trash)
     weights: jax.Array         # [P, Es] in src-sorted order (pad -> 0)
-    route: object              # stacked PermutePlan (src order -> dst order)
+    route: jax.Array           # [P, Es] int32 gather index: src -> dst order
     vertex_valid: jax.Array    # [P, Vs] bool (real vertices)
     out_degrees: jax.Array     # [P, Vs] int32 global out-degree of owned verts
     send_idx: jax.Array | None     # [P, P, Smax] int32 local ids to send
@@ -77,11 +78,11 @@ class DistGraph:
     # axis split by SOURCE-OWNER peer, so each exchanged chunk can be
     # expanded/routed/combined the moment it arrives (SURVEY §5
     # comm/compute overlap). peer_edges is the rectangular per-(p,q) edge
-    # capacity; per-peer routes land each peer's edges in ITS OWN
+    # capacity; per-peer gather indices land each peer's edges in ITS OWN
     # dst-sorted order with its own combine offsets — partial combines
     # accumulate associatively across peers.
     peer_edges: int = 0                      # Eq capacity (0 = not built)
-    peer_route: object | None = None         # stacked [P, P, ...] plans
+    peer_route: jax.Array | None = None      # [P, P, Eq] int32 gather idx
     peer_dst_offsets: jax.Array | None = None   # [P, P, Vs+2]
     peer_edge_starts: jax.Array | None = None   # [P, P+1] edge range lo
 
@@ -106,9 +107,9 @@ def partition_graph(csr: Csr | Coo, n_devices: int, *,
     exchange: "all_gather" | "boundary" | "auto" (boundary when the static
     source sets make it cheaper than gathering the full vector).
     overlap: additionally build the per-source-owner edge split (per-peer
-    routes + combine offsets) that lets supersteps process each exchanged
-    chunk as it arrives off the ring (distributed.py overlap mode)."""
-    from essentials_tpu.ops.permute import route_permutation
+    gather indices + combine offsets) that lets supersteps process each
+    exchanged chunk as it arrives off the ring (distributed.py overlap
+    mode)."""
 
     if isinstance(csr, Coo):
         csr = Csr.from_coo(csr)
@@ -120,8 +121,8 @@ def partition_graph(csr: Csr | Coo, n_devices: int, *,
     counts = np.bincount(owner, minlength=n_devices)
     es = _pad_to(max(int(counts.max()), 1), 128)
 
-    # boundary analysis: distinct sources each device needs, per owner
-    o1 = np.lexsort((coo.col_indices, coo.row_indices, owner))
+    # edges grouped by owner, CSR (row-major) order kept within each group
+    o1 = np.argsort(owner, kind="stable")
     starts = np.zeros(n_devices + 1, np.int64)
     np.cumsum(counts, out=starts[1:])
     need = []                       # need[q][p] = sorted global src ids
@@ -175,11 +176,11 @@ def partition_graph(csr: Csr | Coo, n_devices: int, *,
             np.cumsum(deg, out=off[1:])
             off[vtot] = es              # pad edges join the last segment
             src_offsets[p] = off
-        # local-dst-sorted order + routing plan over the (re)sorted edges
-        o2 = np.lexsort((sort_s, sort_d))
-        gather_idx = np.arange(es, dtype=np.int64)
+        # local-dst-sorted order: gather index over the (re)sorted edges
+        o2 = pair_order(sort_d, sort_s, max(vtot, nslots) + 1)
+        gather_idx = np.arange(es, dtype=np.int32)
         gather_idx[:k] = o2
-        plans.append(route_permutation(gather_idx))
+        plans.append(gather_idx)
         ddeg = np.bincount(sort_d[o2], minlength=vs).astype(np.int64)
         doff = np.zeros(vs + 2, np.int64)
         np.cumsum(ddeg, out=doff[1:vs + 1])
@@ -192,7 +193,7 @@ def partition_graph(csr: Csr | Coo, n_devices: int, *,
             elo = np.searchsorted(sort_s, np.arange(n_devices + 1) * span)
             per_dev_overlap.append((sort_s, sort_d, elo))
 
-    route = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *plans)
+    route = jnp.asarray(np.stack(plans))
 
     peer_kw = {}
     if overlap:
@@ -203,19 +204,18 @@ def partition_graph(csr: Csr | Coo, n_devices: int, *,
             for q in range(n_devices):
                 lo, hi = int(elo[q]), int(elo[q + 1])
                 dq = sort_d[lo:hi]
-                oq = np.lexsort((sort_s[lo:hi], dq))
-                gidx = np.arange(eq_cap, dtype=np.int64)
+                oq = pair_order(dq, sort_s[lo:hi], max(vtot, nslots) + 1)
+                gidx = np.arange(eq_cap, dtype=np.int32)
                 gidx[:hi - lo] = oq
-                p_plans.append(route_permutation(gidx))
+                p_plans.append(gidx)
                 ddeg = np.bincount(dq, minlength=vs).astype(np.int64)
                 dof = np.zeros(vs + 2, np.int64)
                 np.cumsum(ddeg, out=dof[1:vs + 1])
                 dof[vs + 1] = eq_cap       # trash slot absorbs peer pad
                 p_doffs.append(dof)
             p_elos.append(elo)
-        peer_route = jax.tree_util.tree_map(
-            lambda *xs: jnp.stack(xs).reshape(
-                (n_devices, n_devices) + xs[0].shape), *p_plans)
+        peer_route = jnp.asarray(
+            np.stack(p_plans).reshape(n_devices, n_devices, eq_cap))
         peer_kw = dict(
             peer_edges=eq_cap,
             peer_route=peer_route,

@@ -1,12 +1,10 @@
-"""Device runtime introspection and execution-shape helpers.
+"""Device runtime introspection.
 
 Capability parity with the reference's L0 "gcuda" layer
-(/root/reference/include/gunrock/cuda/): context (context.hxx:54-206),
-device_properties.hxx constexpr tables, launch_box.hxx occupancy/launch
-shapes, sm.hxx arch flags. On TPU there are no manual launches — XLA owns
-scheduling — so this layer reduces to: device discovery/properties, the
-hardware constants kernels tile against, and helpers choosing tile shapes
-(the launch-box analogue used by the Pallas kernels).
+(/root/reference/include/gunrock/cuda/): context (context.hxx:54-206) and
+the device_properties.hxx constexpr tables. XLA owns kernel launches, so
+this layer reduces to device discovery, the peak rates a roofline share
+divides by, and profiler hooks.
 """
 
 from __future__ import annotations
@@ -15,58 +13,44 @@ from dataclasses import dataclass
 
 import jax
 
-# Per-generation hardware tables (reference parity: the constexpr tables in
-# cuda/device_properties.hxx:95-207). Sources: public TPU specs.
-_TPU_PROPERTIES = {
-    "v4":  dict(hbm_gib=32,  hbm_gbps=1228.0, vmem_mib=16, mxu=(128, 128),
-                bf16_tflops=275.0, lanes=128, sublanes=8),
-    "v5e": dict(hbm_gib=16,  hbm_gbps=819.0,  vmem_mib=16, mxu=(128, 128),
-                bf16_tflops=197.0, lanes=128, sublanes=8),
-    "v5p": dict(hbm_gib=95,  hbm_gbps=2765.0, vmem_mib=16, mxu=(128, 128),
-                bf16_tflops=459.0, lanes=128, sublanes=8),
-    "v6e": dict(hbm_gib=32,  hbm_gbps=1640.0, vmem_mib=16, mxu=(128, 128),
-                bf16_tflops=918.0, lanes=128, sublanes=8),
-    "cpu": dict(hbm_gib=0,   hbm_gbps=50.0,   vmem_mib=0,  mxu=(0, 0),
-                bf16_tflops=0.0, lanes=128, sublanes=8),
-}
+from essentials_tpu.errors import EssentialsError
 
 
 @dataclass(frozen=True)
 class DeviceProperties:
-    kind: str
-    generation: str
-    hbm_gib: float
-    hbm_gbps: float            # peak HBM bandwidth (roofline denominator)
-    vmem_mib: float
-    mxu_shape: tuple
-    bf16_tflops: float
-    lanes: int                 # vector lane count (last-dim tile unit)
-    sublanes: int              # f32 sublane count (2nd-minor tile unit)
+    kind: str                  # jax device_kind
+    platform: str              # jax platform ("gpu", "cpu")
+    mem_gib: float | None      # device memory
+    hbm_gbps: float | None     # peak memory bandwidth (roofline denominator)
+    l2_mib: float | None       # last-level cache
+    sm_count: int | None       # streaming multiprocessors
+    bf16_tflops: float | None  # dense bf16 tensor-core peak
 
 
-def _generation(device) -> str:
-    k = str(getattr(device, "device_kind", "")).lower()
-    for gen in ("v6e", "v5p", "v5e", "v4"):
-        if gen in k.replace(" lite", "e").replace("tpu ", "v").replace("v5 ", "v5"):
-            return gen
-    if "v5" in k and ("lite" in k or "e" in k):
-        return "v5e"
-    if "tpu" in k:
-        return "v5e"
-    return "cpu"
+# Peaks keyed by exact jax ``device_kind``. Source: NVIDIA H100 data sheet
+# (SXM part; dense rates without sparsity) and the Hopper architecture
+# white paper. The CPU row has no peak, so no roofline share is reported.
+_DEVICE_TABLE = {
+    "NVIDIA H100 80GB HBM3": dict(platform="gpu", mem_gib=80.0,
+                                  hbm_gbps=3350.0, l2_mib=50.0,
+                                  sm_count=132, bf16_tflops=989.0),
+    "cpu": dict(platform="cpu", mem_gib=None, hbm_gbps=None, l2_mib=None,
+                sm_count=None, bf16_tflops=None),
+}
 
 
 def device_properties(device=None) -> DeviceProperties:
     """Properties of a device (default: first). Reference parity:
-    gcuda device_properties + standard_context_t::props."""
+    gcuda device_properties + standard_context_t::props. A device kind
+    missing from the table is an error, not a default."""
     device = device or jax.devices()[0]
-    gen = _generation(device)
-    t = _TPU_PROPERTIES[gen]
-    return DeviceProperties(kind=str(getattr(device, "device_kind", device)),
-                            generation=gen, hbm_gib=t["hbm_gib"],
-                            hbm_gbps=t["hbm_gbps"], vmem_mib=t["vmem_mib"],
-                            mxu_shape=t["mxu"], bf16_tflops=t["bf16_tflops"],
-                            lanes=t["lanes"], sublanes=t["sublanes"])
+    kind = str(device.device_kind)
+    row = _DEVICE_TABLE.get(kind)
+    if row is None:
+        raise EssentialsError(
+            f"no peak table entry for device kind {kind!r} "
+            f"(platform {device.platform}); add it to runtime._DEVICE_TABLE")
+    return DeviceProperties(kind=kind, **row)
 
 
 def num_devices() -> int:
@@ -77,23 +61,9 @@ def backend() -> str:
     return jax.default_backend()
 
 
-def choose_row_tile(rows: int, width: int, dtype_bytes: int = 4, *,
-                    vmem_budget_mib: float = 4.0, max_tile: int = 2048) -> int:
-    """Launch-box analogue: pick a row-tile size for a [rows, width] Pallas
-    kernel such that ~3 buffers fit the VMEM budget (reference parity:
-    launch_box_t::calculate_grid_dimensions + occupancy, launch_box.hxx)."""
-    budget = vmem_budget_mib * (1 << 20) / 3
-    tile = max_tile
-    while tile > 8 and tile * width * dtype_bytes > budget:
-        tile //= 2
-    while tile > 1 and rows % tile:
-        tile //= 2
-    return max(tile, 1)
-
-
 # --- profiling (reference parity: NVBench/CUPTI counters + timer --------
 # benchmarks/sssp_bench.cu:60-66; here: the XLA profiler produces per-op
-# HBM/FLOPs utilization traces viewable in TensorBoard/XProf).
+# device traces viewable in TensorBoard/XProf/Perfetto).
 
 def start_trace(log_dir: str) -> None:
     jax.profiler.start_trace(log_dir)

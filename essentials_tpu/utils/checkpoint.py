@@ -4,7 +4,7 @@ The reference's only persistence is the CSR binary cache
 (/root/reference/include/gunrock/formats/csr.hxx:159-240 — covered by
 formats/csr.py + io/loader.py). This adds what it lacked: saving an
 in-progress algorithm state (any pytree of arrays) so long-running jobs can
-resume after preemption — relevant on TPU pods where preemption is routine.
+resume after preemption — relevant on preemptible machines.
 """
 
 from __future__ import annotations

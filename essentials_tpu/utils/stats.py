@@ -2,8 +2,7 @@
 
 The reference declared this collector and never implemented it
 (util::stats::log stub, /root/reference/include/gunrock/util/info.hxx:33-96);
-it is implemented for real here since MTEPS is the benchmark metric
-(BASELINE.md).
+it is implemented for real here since MTEPS is the benchmark metric.
 """
 
 from __future__ import annotations
@@ -40,10 +39,11 @@ class RunStats:
     mteps: float = 0.0               # millions of traversed edges per second
     redundance: float = 0.0          # edges_visited / n_edges
     gbps_effective: float = 0.0      # useful bytes / s (see collect_stats)
-    hbm_gbps: float = 0.0            # device HBM roofline
-    pct_hbm_roofline: float = 0.0    # gbps_effective / hbm_gbps
+    hbm_gbps: float | None = None    # device peak bandwidth (None: no peak)
+    pct_hbm_roofline: float | None = None  # gbps_effective / hbm_gbps
     cycles_ms: list = field(default_factory=list)  # every measured run
     backend: str = ""
+    device_kind: str = ""
     git_sha: str = field(default_factory=_git_sha)
 
     def to_json(self) -> str:
@@ -57,16 +57,17 @@ def collect_stats(algorithm: str, dataset: str, graph, elapsed_ms: float,
     """gbps_effective uses a USEFUL-bytes model — the bytes an ideal
     gather-capable machine would have to move: 12 B per visited edge of a
     weighted graph (index + weight + one gathered value), 8 B unweighted.
-    pct_hbm_roofline divides by the device's peak HBM bandwidth (the
-    reference collects the equivalent DRAM-throughput counter via
-    NVBench/CUPTI, benchmarks/sssp_bench.cu:60-66)."""
-    import jax
+    pct_hbm_roofline divides by the device's peak memory bandwidth from
+    runtime's table (the reference collects the equivalent DRAM-throughput
+    counter via NVBench/CUPTI, benchmarks/sssp_bench.cu:60-66); it is None
+    on a device without a peak (the CPU)."""
     from essentials_tpu.runtime import device_properties
     ev = int(edges_visited) if edges_visited is not None else graph.n_edges * max(iterations, 1)
     mteps = (ev / 1e6) / (elapsed_ms / 1e3) if elapsed_ms > 0 else 0.0
     bpe = 12.0 if graph.properties.weighted else 8.0
     gbps = (ev * bpe / 1e9) / (elapsed_ms / 1e3) if elapsed_ms > 0 else 0.0
-    hbm = device_properties().hbm_gbps
+    props = device_properties()
+    hbm = props.hbm_gbps
     return RunStats(
         algorithm=algorithm, dataset=dataset,
         n_vertices=graph.n_vertices, n_edges=graph.n_edges,
@@ -75,7 +76,7 @@ def collect_stats(algorithm: str, dataset: str, graph, elapsed_ms: float,
         search_depth=iterations, mteps=mteps,
         redundance=ev / max(graph.n_edges, 1),
         gbps_effective=round(gbps, 3), hbm_gbps=hbm,
-        pct_hbm_roofline=round(gbps / hbm, 4) if hbm else 0.0,
+        pct_hbm_roofline=round(gbps / hbm, 4) if hbm else None,
         cycles_ms=[round(c, 3) for c in (cycles_ms or [elapsed_ms])],
-        backend=jax.default_backend(),
+        backend=props.platform, device_kind=props.kind,
     )

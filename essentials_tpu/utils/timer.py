@@ -1,8 +1,8 @@
 """Wall-clock timer with device synchronization.
 
 Reference parity: util::timer_t (cudaEvent-based,
-/root/reference/include/gunrock/util/timer.hxx:17-49). On TPU the analogue is
-host perf_counter bracketing `jax.block_until_ready`.
+/root/reference/include/gunrock/util/timer.hxx:17-49): host perf_counter
+bracketing `jax.block_until_ready`.
 """
 
 from __future__ import annotations
@@ -10,19 +10,6 @@ from __future__ import annotations
 import time
 
 import jax
-
-
-def fence(x) -> None:
-    """Force completion of ``x`` (array or pytree) with a value fetch.
-
-    `jax.block_until_ready` can return while work (even compilation) is
-    still in flight on tunneled/remote runtimes; fetching one element per
-    leaf is the reliable barrier. Use this for warmups and timing fences.
-    """
-    import numpy as np
-    for leaf in jax.tree_util.tree_leaves(x):
-        if hasattr(leaf, "ravel") and getattr(leaf, "size", 0):
-            np.asarray(leaf.ravel()[0])
 
 
 class Timer:
@@ -35,14 +22,10 @@ class Timer:
         return self
 
     def end(self, sync=None) -> float:
-        """Stop; optionally block on ``sync`` (a jax array/pytree) first.
-        Returns elapsed milliseconds.
-
-        The fence fetches one element per leaf: on tunneled/remote runtimes
-        block_until_ready alone can return before the device finishes, and a
-        device->host value fetch is the only reliable fence."""
+        """Stop; first block on ``sync`` (a jax array/pytree) when given.
+        Returns elapsed milliseconds."""
         if sync is not None:
-            fence(sync)
+            jax.block_until_ready(sync)
         self._ms = (time.perf_counter() - self._t0) * 1e3
         return self._ms
 

@@ -1,8 +1,7 @@
 """Multi-host (multi-controller) smoke test: 2 CPU-backend processes
 initialize via parallel.multihost, form a global mesh spanning both, and
 run dist_bfs end-to-end (shard_map collectives crossing the process
-boundary). VERDICT r4 missing #2: parallel/multihost.py must be
-EXECUTED, not just plausible.
+boundary): parallel/multihost.py is executed, not just imported.
 
 Skips when the coordinator port cannot be allocated or the jax build
 lacks multi-process CPU support.

@@ -9,15 +9,9 @@ from essentials_tpu.graph.convert import offsets_to_indices, indices_to_offsets
 
 def test_device_properties():
     p = runtime.device_properties()
-    assert p.lanes == 128 and p.sublanes == 8
-    assert p.hbm_gbps > 0
+    assert p.kind == "cpu" and p.platform == "cpu"
+    assert p.hbm_gbps is None
     assert runtime.num_devices() >= 1
-
-
-def test_choose_row_tile():
-    t = runtime.choose_row_tile(16384, 128)
-    assert 16384 % t == 0 and t * 128 * 4 * 3 <= 4 * (1 << 20) + 1
-    assert runtime.choose_row_tile(100, 128) <= 100
 
 
 def test_offsets_indices_roundtrip():

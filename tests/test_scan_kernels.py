@@ -1,12 +1,10 @@
-"""Pallas scan kernels vs NumPy references (interpret mode on CPU)."""
+"""Edge-axis scans (cumsum, segmented scans) vs NumPy references."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 from essentials_tpu.ops import scan_kernels as sk
-
-sk._INTERPRET = True
 
 
 def _np_segscan(x, flags, op):
@@ -23,7 +21,7 @@ def _np_segscan(x, flags, op):
 def test_scan_1d_int32_exact(n):
     rng = np.random.default_rng(n)
     x = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
-    got = np.asarray(sk.scan_1d(jnp.asarray(x), "add"))
+    got = np.asarray(sk.cumsum(jnp.asarray(x)))
     want = np.cumsum(x.astype(np.int64)).astype(np.int32)  # wrap-around
     np.testing.assert_array_equal(got, want)
 
@@ -31,7 +29,7 @@ def test_scan_1d_int32_exact(n):
 def test_scan_1d_f32():
     rng = np.random.default_rng(0)
     x = rng.standard_normal(4096).astype(np.float32)
-    got = np.asarray(sk.scan_1d(jnp.asarray(x), "add"))
+    got = np.asarray(sk.cumsum(jnp.asarray(x)))
     np.testing.assert_allclose(got, np.cumsum(x), rtol=1e-5, atol=1e-4)
 
 
@@ -42,7 +40,7 @@ def test_segmented_scan(op, n):
     x = rng.integers(-1000, 1000, n).astype(np.int32)
     flags = rng.random(n) < 0.05
     flags[0] = True
-    got = np.asarray(sk.segmented_scan_1d(jnp.asarray(x), jnp.asarray(flags), op))
+    got = np.asarray(sk.segmented_scan(jnp.asarray(x), jnp.asarray(flags), op))
     np.testing.assert_array_equal(got, _np_segscan(x, flags, op))
 
 
@@ -51,7 +49,7 @@ def test_segmented_scan_first_op():
     x = np.arange(300, dtype=np.int32)
     flags = np.zeros(300, bool)
     flags[100] = True
-    got = np.asarray(sk.segmented_scan_1d(jnp.asarray(x),
+    got = np.asarray(sk.segmented_scan(jnp.asarray(x),
                                           jnp.asarray(flags), "first"))
     np.testing.assert_array_equal(got[:100], np.zeros(100))
     np.testing.assert_array_equal(got[100:], np.full(200, 100))
@@ -76,9 +74,12 @@ def test_segmented_minmax_matches_separate():
     x = jnp.asarray(rng.integers(-1000, 1000, n).astype(np.int32))
     flags = jnp.asarray(rng.random(n) < 0.05)
     active = jnp.asarray(rng.random(n) < 0.7)
-    smax, smin = sk.segmented_minmax_1d(x, flags, active)  # kernel path
+    smax, smin = sk.segmented_minmax(x, flags, active)
     imax = np.iinfo(np.int32).max
-    ref_max = sk.segmented_scan(jnp.where(active, x, -imax - 1), flags, "max")
-    ref_min = sk.segmented_scan(jnp.where(active, x, imax), flags, "min")
-    assert np.array_equal(np.asarray(smax), np.asarray(ref_max))
-    assert np.array_equal(np.asarray(smin), np.asarray(ref_min))
+    xa, fa, aa = np.asarray(x), np.asarray(flags).copy(), np.asarray(active)
+    fa[0] = True
+    ref_max = _np_segscan(np.where(aa, xa, -imax - 1).astype(np.int32),
+                          fa, "max")
+    ref_min = _np_segscan(np.where(aa, xa, imax).astype(np.int32), fa, "min")
+    assert np.array_equal(np.asarray(smax), ref_max)
+    assert np.array_equal(np.asarray(smin), ref_min)

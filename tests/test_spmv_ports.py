@@ -1,5 +1,5 @@
-"""PR / HITS / BC on the shared SpMV engine (VERDICT r4 #2 ports):
-the spmv variants must match the generic engine and the host references.
+"""PR / HITS / BC on the shared pull-SpMV engine: the spmv variants must
+match the generic engine and the host references.
 """
 
 import numpy as np
@@ -14,8 +14,7 @@ from essentials_tpu.utils import compare
 
 @pytest.fixture(scope="module")
 def routed_graph():
-    """Large enough that build_graph attaches the cube-router plans, so
-    the spmv variants run the fused chain's reference algebra on CPU."""
+    """A symmetric power-law graph (the spmv variants' domain)."""
     coo = generate.rmat(10, 8, seed=3, undirected=True, weighted=True)
     csr = Csr.from_coo(coo)
     return build_graph(csr, directed=False, weighted=True), csr
@@ -56,8 +55,7 @@ def test_bc_spmv_matches_generic_and_host(routed_graph):
 
 
 def test_unit_spmv_engines_match_pull(routed_graph):
-    """The unit=True engine paths (chain ref algebra on CPU) equal the
-    unweighted pull sum."""
+    """The unit=True engine path equals the unweighted pull sum."""
     import jax.numpy as jnp
     from essentials_tpu.algorithms.pr import _spmv_engine_call
     from essentials_tpu.ops import neighbor_reduce, Combine
@@ -66,7 +64,7 @@ def test_unit_spmv_engines_match_pull(routed_graph):
         .astype(np.float32)
     x[g.n_vertices:] = 0
     x = jnp.asarray(x)
-    y = _spmv_engine_call(g, None, x, unit=True)
+    y = _spmv_engine_call(g, x, unit=True)
     ref = neighbor_reduce(g, lambda e: e.dst_vals[0], dst_values=(x,),
                           combine=Combine.SUM)
     assert compare(y[:g.n_vertices], np.asarray(ref)[:g.n_vertices],
